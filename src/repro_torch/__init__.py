@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of the continuity hash store (reference: ``repro``).
+
+The request path — hashing, the continuity table, lookup and the fused
+insert/update/delete engine, verb plans and the store API — with the
+segment-probe and mutation-plan kernels written in CUDA for Hopper
+(``kernels/csrc``).  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; without a card, asking for CUDA raises.
+"""
