@@ -1,27 +1,55 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port of the continuity store on one card.
+"""Smoke run of the PyTorch/CUDA port on one card.
 
     python3 chip_smoke.py
 
 Phases, in order:
 
 1. Header: the card's name and power limit, torch and CUDA versions, and
-   the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``.
-2. Kernel vs plain: a table of the paper's geometry at full size (2**23
-   buckets: 16 B keys and values, 4-slot buckets, 3 SBuckets, 10 %
+   the build of the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, started together).
+2. Store kernels vs plain: a table of the paper's geometry at full size
+   (2**23 buckets: 16 B keys and values, 4-slot buckets, 3 SBuckets, 10 %
    extension pool, no stash) loaded with 50,331,648 YCSB records (load
-   factor 0.6); each kernel held against its plain PyTorch version on it
-   (exact integer equality) and on synthetic rows, and timed beside its
-   bound; the card's store held against the CPU store on a small input.
-3. Main path, with every kernel's launch count set to 0 just before:
-   ``make_store("continuity", ...)`` on ``cuda`` bulk-loads the same
-   records in 48 insert batches, reads every acknowledged key back,
-   looks up absent keys, runs YCSB-A read/update batches, a distinct-key
-   update and delete batch (paper Table I: 2 / 2 / 1 PM writes per op),
-   and compares the kernel lookup policy with the gather policy.
-4. Report: one JSON line of every kernel's launches on the main path,
-   error, times and bound; the card's name and power limit; last
-   ``{"ok": true, "device": {...}}``.
+   factor 0.6); the probe and mutate kernels held against their plain
+   PyTorch versions on it (exact integer equality) and on synthetic rows,
+   and timed beside their bound; the card's store held against the CPU
+   store on a small input.
+3. The store's request path, with every kernel's launch count set to 0
+   just before: ``make_store("continuity", ...)`` on ``cuda`` bulk-loads
+   the same records in 48 insert batches, reads every acknowledged key
+   back, looks up absent keys, runs YCSB-A read/update batches, a
+   distinct-key update and delete batch (paper Table I: 2 / 2 / 1 PM
+   writes per op), and compares the kernel lookup policy with the gather
+   policy.  Its tables and records are freed afterwards.
+4. Paged attention vs plain: the kernel against ``paged_attn_ref`` in
+   float32 (2e-5) and bfloat16 (6e-2) on the shapes of
+   ``tests/test_kernels.py``, G = 1 and 8, lengths on page boundaries and
+   one past them, poisoned unmapped pages, and Yi-6B's decode shape on a
+   pool of phase 5's size (there also within 2 % of the largest plain
+   output, a limit that an output one token or one page short is shown to
+   break); timed beside its bound, its plain version and
+   ``scaled_dot_product_attention`` over the same tokens laid out densely.
+5. Serving Yi-6B at full width (32 layers, d 4096, 32/4 heads, vocab
+   64,000; bf16 weights from a seeded generator, residual output
+   projections scaled by 1/sqrt(2L)) through the port's ``launch/serve``
+   path, with every launch count set to 0 just before: 32 prompts of
+   2,048 tokens prefilled, 63 greedy decode steps against the hash-paged
+   pool (page size 16, 132 pages per sequence), one more step run with the
+   plain attention and with the kernel (each layer's kernel output held
+   against the plain version on that layer's inputs) and timed part by
+   part, then every sequence released.  Page-table contents are checked
+   exactly against the host-computed bump allocation; the last step's
+   logits against the dense forward over the same tokens; a float32 twin
+   (4 sequences, 512-token prompts) against its float32 forward, at the
+   launcher's init and on the served weights.  The checks run outside the
+   count: the launches reported are prefill's, the 63 steps' and the
+   releases'.
+6. The continuous batcher on the same weights answers 48 requests in 32
+   slots.
+7. Report: one JSON line of every kernel's launches on the serving path
+   (phase 5), error, times and bound; the card's name and power limit;
+   last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -48,6 +76,20 @@ ODD_B = 65_531
 YCSB_BATCHES = 4
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device-memory rate (data sheet)
+# phase 4/5: serving Yi-6B
+SERVE_B = 32                   # global batch (sequences)
+PROMPT_LEN = 2048
+GEN = 64                       # generated tokens: prefill's + 63 steps
+PAGE_SIZE = 16
+CHECK_SEQS = 4                 # sequences held against the dense forward
+FORWARD_TOL = 0.25             # bf16 logits of two evaluations, std ~1.3
+F32_FORWARD_TOL = 1e-3         # the same in float32 (same weights upcast)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 6e-2}
+# bf16 comparisons at the serving shape, whose outputs can be far below 1:
+# the limit is also held to this share of the largest plain output (~2.5
+# bf16 ulps of it), so a dropped page or token cannot pass under it
+ATTN_REL = 2e-2
+BATCH_REQUESTS = 48
 KERNEL_SLEEP = 40_000_000      # device-sleep cycles ahead of a timed kernel
 PLAIN_SLEEP = 200_000_000     # ... of a timed plain version (~100 ms)
 
@@ -483,6 +525,464 @@ def main_path(torch, api, ch, ycsb, K, keys, vals, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the paged-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _attn_case(torch, seed, B, H, KVH, D, PS, MAXP, NP=None, lens=None,
+               dtype=None, q_scale=0.5):
+    """Pool pages shuffled and mapped for each sequence's live length, the
+    rest of the table unmapped (-1); on the card in ``dtype``.  Scores have
+    std ``q_scale * 0.3``."""
+    rng = np.random.RandomState(seed)
+    NP = NP or B * MAXP + 2
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(
+            dtype)
+    q, kp, vp = randn(B, H, D, scale=q_scale), \
+        randn(NP, KVH, PS, D, scale=0.3), \
+        randn(NP, KVH, PS, D)
+    lens = np.asarray(lens if lens is not None
+                      else rng.randint(1, MAXP * PS, size=B), np.int32)
+    pt = np.full((B, MAXP), -1, np.int32)
+    live = -(-lens // PS)
+    ids = rng.permutation(NP)[:int(live.sum())]
+    for b in range(B):
+        pt[b, :live[b]] = ids[live[:b].sum():live[:b + 1].sum()]
+    return (q, kp, vp, torch.from_numpy(pt).cuda(),
+            torch.from_numpy(lens).cuda())
+
+
+def _attn_limit(want) -> float:
+    """The bf16 limit at the serving shape: 6e-2, and at most ``ATTN_REL``
+    of the largest plain output."""
+    return min(ATTN_TOL["bfloat16"], ATTN_REL * float(want.abs().max()))
+
+
+def attention_phase(torch, card) -> dict:
+    """Phase 4; returns the kernel's report row (launches filled later)."""
+    from repro_torch.kernels import paged_attn
+    from repro_torch.kernels.paged_attn_ref import paged_attention_ref
+    kern, plain = paged_attn.paged_attention, paged_attention_ref
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+
+    def compare(case, args):
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        e = float((got.float() - want.float()).abs().max())
+        name = str(args[0].dtype).replace("torch.", "")
+        errs[name] = max(errs[name], e)
+        _check(e < ATTN_TOL[name], f"paged attention within {ATTN_TOL[name]} "
+               f"of its plain version ({case}, {name}: {e})")
+        return got
+
+    shapes = [(2, 4, 1, 16, 8, 3), (3, 8, 2, 32, 16, 4), (1, 16, 4, 64, 32, 2),
+              (4, 4, 4, 16, 8, 5), (3, 16, 2, 128, 16, 6),
+              (2, 8, 8, 128, 16, 4)]
+    PS = PAGE_SIZE
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, shp in enumerate(shapes):
+            compare(f"B,H,KVH,D,PS,MAXP={shp}",
+                    _attn_case(torch, i, *shp, dtype=dtype))
+        compare("lengths on page boundaries and one past",
+                _attn_case(torch, 9, 6, 32, 4, 128, PS, 4, dtype=dtype,
+                           lens=[PS, PS + 1, 2 * PS, 2 * PS + 1, 1, 4 * PS]))
+        q, kp, vp, pt, lens = _attn_case(torch, 10, 2, 16, 2, 64, PS, 4,
+                                         NP=16, lens=[2 * PS + 3, PS],
+                                         dtype=dtype)
+        base = compare("poison baseline", (q, kp, vp, pt, lens))
+        mapped = torch.zeros(16, dtype=torch.bool, device="cuda")
+        mapped[pt[pt >= 0].long()] = True
+        kp[~mapped], vp[~mapped] = 1e3, -1e3   # poison every unmapped page
+        _check(torch.equal(kern(q, kp, vp, pt, lens), base),
+               f"poisoned unmapped pages leave the output unchanged ({dtype})")
+
+    # Yi-6B's decode shape on a pool of phase 5's size, at its last step;
+    # scores of std 1.2, so a few dozen tokens carry each output and one
+    # token less moves it by far more than the limit
+    B, H, KVH, D, MAXP = SERVE_B, 32, 4, 128, -(-(PROMPT_LEN + GEN) // PS)
+    NP = B * MAXP
+    last = PROMPT_LEN + GEN - 1
+    batches = [_attn_case(torch, 20 + i, B, H, KVH, D, PS, MAXP, NP=NP,
+                          lens=[last] * B, dtype=torch.bfloat16, q_scale=4.0)
+               for i in range(4)]
+    full = batches[0]
+    want = plain(*full).float()
+    limit = _attn_limit(want)
+    e_full = float((kern(*full).float() - want).abs().max())
+    _check(e_full <= limit, f"full-size paged attention within {limit:.3g} "
+           f"of its plain version ({e_full})")
+    q, kp, vp, pt, lens = full
+    for cut, what in ((1, "its last token"), (PS, "its last page")):
+        moved = float((plain(q, kp, vp, pt, lens - cut).float() - want)
+                      .abs().max())
+        _check(moved > limit, f"the full-size limit rejects an output that "
+               f"drops {what} ({moved} vs {limit:.3g})")
+    ms = _device_ms(torch, lambda a: kern(*a), batches, 100, KERNEL_SLEEP)
+    plain_ms = _device_ms(torch, lambda a: plain(*a), batches, 10,
+                          PLAIN_SLEEP)
+
+    def dense(a):            # the same live tokens as a (B, KVH, T, D) cache
+        q, kp, vp, pt, lens = a
+        T_ = int(lens[0])
+        idx = pt[:, :-(-T_ // PS)].long()
+        return [x[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, -1, D)[:, :, :T_]
+                .contiguous() for x in (kp, vp)]
+    dense_b = [(a[0][:, :, None], *dense(a)) for a in batches]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = _device_ms(torch, lambda a: sdpa(*a, enable_gqa=True), dense_b,
+                        100, KERNEL_SLEEP)
+    lib_out = sdpa(*dense_b[0], enable_gqa=True)[:, :, 0]
+    _check(float((lib_out.float() - kern(*full).float()).abs().max())
+           < ATTN_TOL["bfloat16"], "the library call computes the same")
+    nbytes = (B * last * KVH * D * 2 * 2          # live K and V rows, bf16
+              + 2 * B * H * D * 2                 # q and out
+              + B * MAXP * 4 + B * 4)             # page table and lengths
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 4: paged attention equals its plain version (max_abs_err "
+          f"float32 {errs['float32']:.3g}, bfloat16 {errs['bfloat16']:.3g}; "
+          f"Yi-6B shape {e_full:.3g}, limit {limit:.3g}); poisoned unmapped "
+          f"pages ignored",
+          flush=True)
+    print(f"paged_attention: {ms * 1e3:.2f} us on the device per launch at "
+          f"B={B} H={H} KVH={KVH} D={D} PS={PS} len={last} (bound "
+          f"{bound_ms * 1e3:.2f} us from {nbytes / 1e6:.2f} MB; plain version "
+          f"{plain_ms * 1e3:.2f} us; scaled_dot_product_attention on the "
+          f"dense cache, gather excluded, {lib_ms * 1e3:.2f} us) [{card}]",
+          flush=True)
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+            "replaces": "src/repro/kernels/paged_attn.py:80",
+            "max_abs_err": e_full, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serving Yi-6B at full width
+# ---------------------------------------------------------------------------
+
+def _count(cache) -> int:
+    return sum(int(t.count) for t in cache.table)
+
+
+def _diff_stats(torch, a, b) -> str:
+    """max / 99.9th percentile / mean abs difference of two (B, V) logit
+    tensors, and the share of rows whose argmax agrees."""
+    d = (a.float() - b.float()).abs()
+    top = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    q = float(torch.quantile(d.flatten()[:2 ** 24], 0.999))
+    return (f"max_abs_err {float(d.max()):.4f}, p99.9 {q:.4f}, mean "
+            f"{float(d.mean()):.5f}, argmax agreement {top:.3f}")
+
+
+def _float32(torch, cfg, params):
+    """The float32 twin of a model: its config and its weights upcast."""
+    import dataclasses
+    p32 = {k: v.float() for k, v in params.items() if k != "blocks"}
+    p32["blocks"] = {k: v.float() for k, v in params["blocks"].items()}
+    return dataclasses.replace(cfg, dtype="float32"), p32
+
+
+def _uncounted(run):
+    """``run()`` with the kernels' launch counts left as they were: the
+    launches of a check are not the serving path's."""
+    from repro_torch.kernels import mutate, paged_attn, probe
+    kerns = (probe.probe_segments, mutate.mutate_segments,
+             paged_attn.paged_attention)
+    saved = [k.launches for k in kerns]
+    try:
+        return run()
+    finally:
+        for k, n in zip(kerns, saved):
+            k.launches = n
+
+
+def _swap_attention(attention, run):
+    """``run()`` with ``ops.paged_attention`` replaced by
+    ``attention(kernel_call, *args, **kw)``, where ``kernel_call`` is the
+    ops function it replaces."""
+    from repro_torch.kernels import ops as K
+    kernel_call = K.paged_attention
+    K.paged_attention = lambda *a, **kw: attention(kernel_call, *a, **kw)
+    try:
+        return run()
+    finally:
+        K.paged_attention = kernel_call
+
+
+def _plain_attention(run):
+    """``run()`` with every paged-attention call on the plain version."""
+    return _swap_attention(lambda f, *a, **kw: f(*a, use_kernel=False, **kw),
+                           run)
+
+
+def _in_situ_attention(run) -> list:
+    """Run ``run()`` with every paged-attention call also computed by the
+    plain version on the same operands; returns each call's (max abs
+    difference, limit) (the kernel's output goes on)."""
+    errs = []
+
+    def both(f, *args, **kw):
+        out = f(*args, **kw)
+        want = f(*args, use_kernel=False, **kw).float()
+        errs.append((float((out.float() - want).abs().max()),
+                     _attn_limit(want)))
+        return out
+    _swap_attention(both, run)
+    return errs
+
+
+def float32_twin(torch, cfg, params, prompts, what) -> float:
+    """The serving path in float32 at full width, small batch, on the
+    weights upcast: decode's last logits against the float32 dense forward
+    over the same tokens.  Returns the max abs difference."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import kvcache as KC
+    cfg32, p32 = _float32(torch, cfg, params)
+    B32, P32, G32 = CHECK_SEQS, 512, 8
+    g32 = serve.make_geometry(cfg32, B32, P32, G32, page_size=PAGE_SIZE,
+                              shards=1, device="cuda")
+    lg32, c32 = serve.run_prefill(cfg32, g32, p32, prompts[:B32, :P32],
+                                  KC.create_cache(g32))
+    t32, lg32, c32 = serve.run_decode(cfg32, g32, p32, lg32, c32, G32)
+    x, _ = T.forward(cfg32, p32, torch.cat(
+        [prompts[:B32, :P32], t32[:, :G32 - 1]], 1))
+    err32 = float((lg32 - T.logits_fn(cfg32, p32, x[:, -1])).abs().max())
+    print(f"float32 twin, {what} ({B32} sequences, {P32}-token prompts, "
+          f"{G32} generated): decode vs dense forward max_abs_err "
+          f"{err32:.3g} (tolerance {F32_FORWARD_TOL})", flush=True)
+    _check(err32 <= F32_FORWARD_TOL, f"float32 paged decode equals the "
+           f"float32 dense forward ({what})")
+    del p32, c32, x
+    torch.cuda.empty_cache()
+    return err32
+
+
+def serving_phase(torch, card):
+    """Phase 5; returns (cfg, params) for phase 6 and the kernels'
+    launches on the serving path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import kvcache as KC
+
+    cfg = get_arch("yi-6b")
+    params, t_init = _timed(torch, lambda: T.init_params(
+        cfg, torch.Generator("cuda").manual_seed(SEED)))
+    prompts = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (SERVE_B, PROMPT_LEN)).astype(np.int32)).cuda()
+    # the port against its own forward at the init that launch.serve uses
+    float32_twin(torch, cfg, params, prompts, "the launcher's init")
+    # residual output projections scaled by 1/sqrt(2L), as GPT-2 and
+    # Megatron-LM initialise them: with the reference's unscaled init this
+    # random 32-layer model amplifies bf16 rounding until two bf16
+    # evaluations of one step differ by ~0.25 in logits of std 1.3, while
+    # the float32 twins (above, and below on these weights) agree with their
+    # forward to ~1e-5: the bf16 checks would measure that amplification,
+    # not the port
+    for name in ("wo", "w_down"):
+        params["blocks"][name].mul_((2 * cfg.n_layers) ** -0.5)
+    geom = serve.make_geometry(cfg, SERVE_B, PROMPT_LEN, GEN,
+                               page_size=PAGE_SIZE, shards=1, device="cuda")
+    MAXP, PS = geom.max_pages, PAGE_SIZE
+    cache = KC.create_cache(geom)
+    print(f"phase 5: {cfg.name} {cfg.n_layers} layers d {cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} vocab {cfg.vocab}, "
+          f"{cfg.param_count / 1e9:.2f} B parameters made in {t_init:.2f} s; "
+          f"pool {geom.pool_pages} pages x {MAXP} per sequence, "
+          f"{2 * cache.kpool.numel() * cache.kpool.element_size() / 1e9:.2f} "
+          f"GB; device memory in use "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB [{card}]",
+          flush=True)
+    npre = PROMPT_LEN // PS
+    b_ = np.arange(SERVE_B)[:, None]
+
+    def expect_pages(n_dec):      # the bump allocator's ids, host-computed
+        want = np.full((SERVE_B, MAXP), -1, np.int32)
+        want[:, :npre] = b_ * npre + np.arange(npre)
+        for k in range(n_dec):
+            want[:, npre + k] = SERVE_B * npre + k * SERVE_B + b_[:, 0]
+        return want
+
+    def check_table(cache, n_dec, lens, off, what):
+        pages = KC.lookup_pages(geom, cache.table, cache.seq_ids)[0]
+        want = expect_pages(n_dec)
+        _check(_count(cache) == int((want >= 0).sum()),
+               f"{what}: the page table holds {int((want >= 0).sum())} "
+               f"mappings")
+        _check(np.array_equal(pages.cpu().numpy(), want),
+               f"{what}: lookup_pages returns the bump allocator's pages")
+        _check(int(cache.next_free[0]) == int((want >= 0).sum()),
+               f"{what}: next_free")
+        _check(bool((cache.seq_lens == lens).all()), f"{what}: seq_lens")
+        _check(bool((cache.cur_off == off).all()), f"{what}: cur_off")
+        last = want[np.arange(SERVE_B), -(-lens // PS) - 1]
+        _check(np.array_equal(cache.cur_page[0].cpu().numpy(), last),
+               f"{what}: cur_page")
+
+    # the serving path's launches: counted from 0 over prefill, the decode
+    # steps and the releases; every check in between runs _uncounted
+    torch.cuda.reset_peak_memory_stats()
+    from repro_torch.kernels import mutate, paged_attn, probe
+    for k in (probe.probe_segments, mutate.mutate_segments,
+              paged_attn.paged_attention):
+        k.launches = 0
+    (lg, cache), t_pre = _timed(torch, lambda: serve.run_prefill(
+        cfg, geom, params, prompts, cache))
+    _check(lg.shape == (SERVE_B, cfg.vocab) and bool(lg.isfinite().all()),
+           "prefill logits finite, (B, vocab)")
+    _uncounted(lambda: check_table(cache, 0, PROMPT_LEN, 0, "after prefill"))
+    (toks, lg, cache), t_dec = _timed(torch, lambda: serve.run_decode(
+        cfg, geom, params, lg, cache, GEN))
+    n_steps = GEN - 1
+    lens = PROMPT_LEN + n_steps
+    n_dec = -(-lens // PS) - npre
+    _uncounted(lambda: check_table(cache, n_dec, lens, (lens - 1) % PS,
+                                   "after decode"))
+    _check(bool(lg.isfinite().all()), "decode logits finite")
+    print(f"prefill: {SERVE_B} x {PROMPT_LEN} tokens in {t_pre:.3f} s = "
+          f"{SERVE_B * PROMPT_LEN / t_pre:.0f} tokens/s; decode: {n_steps} "
+          f"steps x {SERVE_B} sequences in {t_dec:.3f} s = "
+          f"{SERVE_B * n_steps / t_dec:.1f} tokens/s "
+          f"({t_dec / n_steps * 1e3:.2f} ms per step); page table "
+          f"{_count(cache)} mappings, lookup_pages exact [{card}]",
+          flush=True)
+
+    # (b) the last step's logits against the port's dense forward over the
+    # same tokens; beside it, the same against the forward in float32 on
+    # the same weights (the exact function both bf16 paths round)
+    hist = torch.cat([prompts[:CHECK_SEQS], toks[:CHECK_SEQS, :n_steps]], 1)
+    x, _ = T.forward(cfg, params, hist)
+    ref = T.logits_fn(cfg, params, x[:, -1])
+    err_fwd = float((lg[:CHECK_SEQS] - ref).abs().max())
+    cfg32, params32 = _float32(torch, cfg, params)
+    x, _ = T.forward(cfg32, params32, hist)
+    ref32 = T.logits_fn(cfg32, params32, x[:, -1])
+    del params32, x
+    torch.cuda.empty_cache()
+    print(f"decode vs dense forward over {hist.shape[1]} tokens, "
+          f"{CHECK_SEQS} sequences: {_diff_stats(torch, lg[:CHECK_SEQS], ref)}"
+          f" (tolerance {FORWARD_TOL} on the max; logits std "
+          f"{float(ref.std()):.3f}); vs the float32 forward "
+          f"{_diff_stats(torch, lg[:CHECK_SEQS], ref32)}", flush=True)
+    _check(err_fwd <= FORWARD_TOL, "paged decode agrees with the dense "
+           "forward")
+    # the same path in float32 on these weights: decode equals the forward
+    # up to float32 rounding, so the bf16 gap above is rounding
+    _uncounted(lambda: float32_twin(torch, cfg, params, prompts,
+                                    "the served weights"))
+
+    # (a) one more step on the same state: the whole layer stack with the
+    # plain attention, then with the kernel while every layer's kernel
+    # output is held against the plain version on that layer's own q and
+    # pool, then the kernel step again, timed part by part
+    def check_step():
+        tok = lg.argmax(-1).to(torch.int32)
+        parts = {}
+        c, parts["advance (inserts)"] = _timed(
+            torch, lambda: KC.advance(geom, cache))
+        pt, parts["lookup_pages (probe)"] = _timed(
+            torch, lambda: KC.lookup_pages(geom, c.table, c.seq_ids))
+
+        def layers():
+            return T.paged_layers(cfg, params, tok, c, geom, pt)
+        x_plain = _plain_attention(layers)
+        lg_plain = T.logits_fn(cfg, params, T.final_norm(cfg, params, x_plain))
+        layer_err = _in_situ_attention(layers)
+        x, parts["layer stack (attention kernel + matmuls)"] = _timed(
+            torch, layers)
+        lg1, parts["final norm + logits"] = _timed(
+            torch, lambda: T.logits_fn(cfg, params,
+                                       T.final_norm(cfg, params, x)))
+        return KC.commit_token(c), parts, layer_err, lg1, lg_plain
+    cache, parts, layer_err, lg1, lg_plain = _uncounted(check_step)
+    worst = max(layer_err, key=lambda el: el[0] / el[1])
+    _check(len(layer_err) == cfg.n_layers
+           and all(e <= lim for e, lim in layer_err),
+           f"in the decode step, every layer's kernel attention equals the "
+           f"plain version on the same inputs (worst {worst[0]} against its "
+           f"limit {worst[1]:.3g})")
+    err_step = float((lg1 - lg_plain).abs().max())
+    _check(err_step <= FORWARD_TOL, f"the step's logits with the kernel and "
+           f"with the plain attention agree ({err_step})")
+    print(f"one decode step, kernel vs plain attention on each layer's own "
+          f"inputs: max_abs_err {max(e for e, _ in layer_err):.3g} over "
+          f"{len(layer_err)} layers (each within {ATTN_REL} of its largest "
+          f"plain output, at most {ATTN_TOL['bfloat16']}; tightest limit "
+          f"{min(lim for _, lim in layer_err):.3g}); whole step with the "
+          f"kernel vs whole step with the plain version: logits "
+          f"{_diff_stats(torch, lg1, lg_plain)}", flush=True)
+    print("the step by part (host clock, synchronized): "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in parts.items())
+          + f"; sum {sum(parts.values()) * 1e3:.3f} ms [{card}]", flush=True)
+
+    # release every sequence: deletes through the mutation-plan kernel
+    def release_all(c):
+        for b in range(SERVE_B):
+            c = E.release_sequence(geom, c, 0, b)
+        return c
+    cache, t_rel = _timed(torch, lambda: release_all(cache))
+    _check(_count(cache) == 0 and not bool(cache.seq_lens.any()),
+           "the page table is empty after release")
+    launches = {"probe_segments": probe.probe_segments.launches,
+                "mutate_segments": mutate.mutate_segments.launches,
+                "paged_attention": paged_attn.paged_attention.launches}
+    print(f"release: {SERVE_B} sequences in {t_rel:.3f} s, 0 mappings left; "
+          f"serving path kernel launches {launches}; device memory in use "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB [{card}]",
+          flush=True)
+    for name, n in launches.items():
+        _check(n > 0, f"the serving path launched {name}")
+    _check(launches["paged_attention"] == n_steps * cfg.n_layers,
+           "one attention launch per layer per decode step")
+    return cfg, params, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the continuous batcher answers requests
+# ---------------------------------------------------------------------------
+
+def batcher_phase(torch, cfg, params, card) -> None:
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+    geom = KC.make_geometry(cfg, ShapeConfig("serve", seq_len=512,
+                                             global_batch=SERVE_B,
+                                             kind="decode"),
+                            shards=1, page_size=PAGE_SIZE, device="cuda")
+    batcher = ContinuousBatcher(cfg, geom, params)
+    rng = np.random.RandomState(SEED + 6)
+    want = {}
+    for rid in range(BATCH_REQUESTS):
+        n = int(rng.randint(16, 33))
+        want[rid] = n
+        batcher.submit(Request(rid=rid, prompt=rng.randint(
+            0, cfg.vocab, size=int(rng.randint(8, 65))).astype(np.int32),
+            max_new_tokens=n))
+    finished, t_run = _timed(torch, lambda: batcher.run(max_steps=2000))
+    _check(sorted(finished) == list(range(BATCH_REQUESTS)),
+           "every request finished")
+    _check(all(len(finished[r]) == n for r, n in want.items()),
+           "every request got exactly its token count")
+    _check(all(0 <= t < cfg.vocab for out in finished.values() for t in out),
+           "generated ids are in the vocabulary")
+    _check(all(s is None for s in batcher.slots), "every slot is free")
+    _check(_count(batcher.cache) == 0, "the page table ends empty")
+    releases = int(batcher.cache.seq_ids.max()) - (SERVE_B - 1)
+    _check(releases >= BATCH_REQUESTS,
+           "slots were reused (a fresh sequence id per release)")
+    n_tok = sum(want.values())
+    print(f"phase 6: continuous batcher, {BATCH_REQUESTS} requests (prompts "
+          f"8-64, 16-32 new tokens) through {SERVE_B} slots in {t_run:.3f} s: "
+          f"{n_tok} tokens generated ({n_tok / t_run:.1f} tokens/s), "
+          f"{releases} releases, page table empty [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -496,23 +996,27 @@ def main() -> int:
     from repro_torch.kernels import _cuda, mutate, probe
     from repro_torch.kernels import ops as K
 
+    # float32 matmuls in full float32 (the float32 checks of phase 5)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     # -- phase 1: header and build ---------------------------------------
     card = _smi()
-    t0 = time.perf_counter()
-    _cuda.segment_probe_lib()
-    t_build = time.perf_counter() - t0
+    _, t_build = _timed(torch, _cuda.build_all)
     print(f"card: {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}; kernel build {t_build:.2f} s", flush=True)
-    for line in _cuda.build_log.get("segment_probe.cu", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+          f"{torch.version.cuda}; kernel build {t_build:.2f} s "
+          f"({len(_cuda.SOURCES)} sources in parallel)", flush=True)
+    for source in _cuda.SOURCES:
+        for line in _cuda.build_log.get(source, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {source}: {line.strip()}", flush=True)
     keys, vals = _records(torch, ycsb)
 
-    # -- phase 2: kernels against their plain versions -------------------
+    # -- phase 2: store kernels against their plain versions -------------
     rows = kernel_phase(torch, api, ch, ycsb, K, probe, mutate, keys, vals,
                         card)
 
-    # -- phase 3: the main path, its launches counted --------------------
+    # -- phase 3: the store's request path, its launches counted ---------
     torch.cuda.reset_peak_memory_stats()
     probe.probe_segments.launches = 0
     mutate.mutate_segments.launches = 0
@@ -521,14 +1025,29 @@ def main() -> int:
     t_main = time.perf_counter() - t0
     launches = {"probe_segments": probe.probe_segments.launches,
                 "mutate_segments": mutate.mutate_segments.launches}
-    print(f"main path: {t_main:.1f} s, kernel launches {launches}, device "
+    print(f"request path: {t_main:.1f} s, kernel launches {launches}, device "
           f"memory in use {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, "
           f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
           f"[{card}]", flush=True)
     for name, n in launches.items():
-        _check(n > 0, f"the main path launched {name}")
+        _check(n > 0, f"the request path launched {name}")
+    del keys, vals
+    torch.cuda.empty_cache()
 
-    # -- phase 4: report -------------------------------------------------
+    # -- phase 4: paged attention against its plain version --------------
+    rows.append(attention_phase(torch, card))
+    torch.cuda.empty_cache()
+
+    # -- phase 5: serving Yi-6B, its launches counted ---------------------
+    t0 = time.perf_counter()
+    cfg, params, launches = serving_phase(torch, card)
+    torch.cuda.empty_cache()
+    print(f"serving path: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 6: the continuous batcher ---------------------------------
+    batcher_phase(torch, cfg, params, card)
+
+    # -- phase 7: report -------------------------------------------------
     for r in rows:
         r["launches"] = launches[r["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

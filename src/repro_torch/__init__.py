@@ -1,8 +1,10 @@
 """PyTorch/CUDA port of the continuity hash store (reference: ``repro``).
 
 The request path — hashing, the continuity table, lookup and the fused
-insert/update/delete engine, verb plans and the store API — with the
-segment-probe and mutation-plan kernels written in CUDA for Hopper
+insert/update/delete engine, verb plans and the store API — and
+hash-paged serving of the dense family (models, paged KV cache, engine,
+continuous batcher, ``launch.serve``), with the segment-probe,
+mutation-plan and paged-attention kernels written in CUDA for Hopper
 (``kernels/csrc``).  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card, asking for CUDA raises.
 """

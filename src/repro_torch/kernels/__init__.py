@@ -1,1 +1,2 @@
-"""Segment kernels (CUDA for Hopper) and their plain versions."""
+"""Kernels (CUDA for Hopper): segment probe, mutation plan, paged attention;
+and their plain versions."""

@@ -4,7 +4,8 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, loaded with ``ctypes``.  The build happens at first
 use, into ``_build/`` beside this file, and is keyed by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
-loads the library already built.  Nothing is built or loaded at import.
+loads the library already built; ``build_all`` runs one ``nvcc`` per
+source in parallel.  Nothing is built or loaded at import.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+SOURCES = ("segment_probe.cu", "paged_attn.cu")
+
 _lock = threading.Lock()
 _libs: dict = {}
 build_log: dict = {}   # source name -> nvcc/ptxas output of its build
@@ -40,38 +43,71 @@ def nvcc_path() -> str:
                        "CUDA toolkit on the machine with the card")
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` (if not built yet) and return the library."""
+def _target(source: str) -> Path:
     src = CSRC / source
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}-{digest}.so"
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed on {source} ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    build_log[source] = res.stdout + res.stderr
-    os.replace(tmp, out)
-    return out
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def build_all(sources=SOURCES) -> dict:
+    """Compile every source not built yet, one ``nvcc`` each, all started
+    together; returns ``{source: library path}``.  Raises if any fails."""
+    started = {}
+    for source in sources:
+        out = _target(source)
+        if out.is_file():
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        started[source] = (out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for source, (out, tmp, proc) in started.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed on {source} "
+                          f"({proc.returncode}):\n{log}")
+            continue
+        build_log[source] = log
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {source: _target(source) for source in sources}
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` (if not built yet) and return the library."""
+    return build_all((source,))[source]
+
+
+def _library(source: str, symbol: str, argtypes) -> ctypes.CDLL:
+    """The library of ``source``, built and loaded once per process, with
+    ``symbol``'s C signature declared."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[source] = lib
+    return lib
 
 
 def segment_probe_lib() -> ctypes.CDLL:
     """The segment-probe library, built and loaded once per process."""
-    with _lock:
-        lib = _libs.get("segment_probe")
-        if lib is None:
-            lib = ctypes.CDLL(str(build("segment_probe.cu")))
-            fn = lib.segment_probe_launch
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                           + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
-            fn.restype = ctypes.c_int
-            _libs["segment_probe"] = lib
-    return lib
+    return _library("segment_probe.cu", "segment_probe_launch",
+                    [ctypes.c_int] + [ctypes.c_void_p] * 8
+                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+
+
+def paged_attn_lib() -> ctypes.CDLL:
+    """The paged-attention library, built and loaded once per process."""
+    return _library("paged_attn.cu", "paged_attn_launch",
+                    [ctypes.c_int] + [ctypes.c_void_p] * 6
+                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
 
 
 MODE_PROBE, MODE_PROBE_FP, MODE_MUTATE = 0, 1, 2
@@ -134,3 +170,54 @@ def launch_segment_probe(mode: int, rows, indicators, fps, prio, pairs,
     if err:
         raise RuntimeError(f"segment_probe_launch failed: cudaError {err}")
     return match, empty, flip
+
+
+PAGED_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float):
+    """Check the operands and launch the paged-attention kernel on the
+    current stream; returns the (B, H, D) output in q's dtype.  Raises on
+    any operand it does not take or a failed launch."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if q.dtype not in PAGED_ATTN_DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 3 or kpool.dim() != 4:
+        raise ValueError(f"q must be (B, H, D) and the pools (NP, KVH, PS, "
+                         f"D), got {tuple(q.shape)} and {tuple(kpool.shape)}")
+    B, H, D = q.shape
+    NP, KVH, PS, Dk = kpool.shape
+    MAXP = page_table.shape[-1]
+    if Dk != D or H % KVH:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pools "
+                         f"{tuple(kpool.shape)}")
+    if D % 8 or D > 256:
+        raise ValueError(f"head dim must be a multiple of 8 up to 256, got {D}")
+    for name, t in (("q", q), ("kpool", kpool), ("vpool", vpool)):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (uint4 loads)")
+    if tuple(vpool.shape) != tuple(kpool.shape):
+        raise ValueError(f"vpool {tuple(vpool.shape)} differs from kpool "
+                         f"{tuple(kpool.shape)}")
+    _need(page_table, "page_table", (B, MAXP), dev)
+    _need(seq_lens, "seq_lens", (B,), dev)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    lib = paged_attn_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.paged_attn_launch(
+            PAGED_ATTN_DTYPES[q.dtype], q.data_ptr(), kpool.data_ptr(),
+            vpool.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
+            out.data_ptr(), B, H, KVH, D, NP, PS, MAXP, float(scale), stream)
+    if err:
+        raise RuntimeError(f"paged_attn_launch failed: cudaError {err}")
+    return out

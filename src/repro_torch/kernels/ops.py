@@ -1,14 +1,15 @@
-"""Public wrappers around the segment kernels.
+"""Public wrappers around the kernels.
 
 Port of ``repro.kernels.ops``: ``probe_table`` adapts a ``ContinuityTable``
 into the probe kernel's layout (flat contiguous rows + parity priority
 table) and returns results identical to ``continuity.lookup``'s probe
 stage; ``probe_lookup`` extends it to a FULL lookup (values + extension
 slots + stash tail + fetch accounting) and is the continuity store's
-kernel read path; ``mutation_plan`` is the write-side peer.  With
-``use_kernel`` the wrappers of ``probe.py``/``mutate.py`` run (the CUDA
-kernel on a card, its plain version on the CPU); without it the plain
-versions run directly.
+kernel read path; ``mutation_plan`` is the write-side peer;
+``paged_attention`` is the serving decode step's attention over the page
+pool.  With ``use_kernel`` the wrappers of ``probe.py``/``mutate.py``/
+``paged_attn.py`` run (the CUDA kernel on a card, its plain version on the
+CPU); without it the plain versions run directly.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from repro_torch.core.continuity import (KEY_LANES, ContinuityConfig,
 from repro_torch.core.words import as_words, u32
 from repro_torch.kernels.mutate import mutate_segments
 from repro_torch.kernels.mutate_ref import mutate_ref
+from repro_torch.kernels.paged_attn import paged_attention as _paged_attn
+from repro_torch.kernels.paged_attn_ref import paged_attention_ref
 from repro_torch.kernels.probe import probe_segments
 from repro_torch.kernels.probe_ref import probe_ref
 
@@ -141,3 +144,13 @@ def probe_lookup(cfg: ContinuityConfig, table: ContinuityTable, keys,
             cfg, table, keys, pair, found, values, slot, reads)
     return ch.LookupResult(found, values, slot.to(I32), pair.to(I32),
                            reads.to(I32))
+
+
+def paged_attention(q, kpool, vpool, page_table, seq_lens, *,
+                    scale: float | None = None, use_kernel: bool = True):
+    """Paged GQA decode attention: q (B, H, D) over pools (NP, KVH, PS, D)
+    through page_table (B, MAXP) with live lengths seq_lens (B,).  The
+    reference pads the query-head group to 8 for the TPU's tiles; the
+    CUDA kernel takes any group size, so nothing is padded here."""
+    fn = _paged_attn if use_kernel else paged_attention_ref
+    return fn(q, kpool, vpool, page_table, seq_lens, scale=scale)

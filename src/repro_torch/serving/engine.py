@@ -1,0 +1,160 @@
+"""Batched decode engine: the paper's read/write protocol on the serving path.
+
+Port of ``repro.serving.engine`` (dense family).  ``serve_step``:
+  1. advance(): sequences crossing a page boundary get a physical page
+     allocated and the (seq, page)->phys mapping INSERTED into the continuity
+     hash table (server-side write: payload, then one atomic indicator
+     commit);
+  2. lookup_pages(): every (seq, logical page) is translated through the hash
+     table (client read: ONE contiguous segment fetch each, the segment-probe
+     kernel on a card);
+  3. the model decodes one token, attending over the pool through the page
+     table with the paged-attention kernel;
+  4. commit_token().
+
+``release_sequence`` returns a finished sequence's pages (hash-table
+deletes: one indicator-bit clear each, the paper's 1-PM-write deletion,
+matched by the mutation-plan kernel on a card).  ``content_page_keys``
+builds content-addressed page keys for prefix sharing.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.hashfn import fold_u32, mix_pair
+from repro_torch.core.words import to_i32
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving import kvcache as KC
+
+I32 = torch.int32
+CONTENT_SALT = 0x9E3779B9
+
+
+def serve_step(cfg: ModelConfig, geom: KC.PageGeometry, params: dict,
+               tokens: torch.Tensor, cache: KC.PagedCache):
+    """One decode step. tokens (B,) int -> (logits (B, V), cache)."""
+    cache = KC.advance(geom, cache)
+    logits, cache = T.paged_decode_step(cfg, params, tokens, cache, geom)
+    return logits, KC.commit_token(cache)
+
+
+# ---------------------------------------------------------------------------
+# prefill — fills pools page-contiguously and registers mappings
+# ---------------------------------------------------------------------------
+
+def prefill(cfg: ModelConfig, geom: KC.PageGeometry, params: dict,
+            inputs: torch.Tensor, cache: KC.PagedCache,
+            prompt_len: Optional[int] = None):
+    """Run the full-attention forward over prompts and populate the paged
+    cache. ``inputs``: (B, S) tokens or (B, S, E) embeds; S must be a
+    multiple of page_size for the bulk page fill (pad upstream).
+
+    Returns (last-position logits (B, V), cache)."""
+    T.check_family(cfg)
+    DS, Bl, PS = geom.shards, geom.batch_per_shard, geom.page_size
+    S = inputs.shape[1]
+    if S % PS:
+        raise ValueError(f"prompt length {S} is not a multiple of the page "
+                         f"size {PS}")
+    npages = S // PS
+    KVH, D = geom.kv_heads, geom.head_dim
+    dev = cache.kpool.device
+
+    x = T.embed(cfg, params, inputs)
+    positions = torch.arange(S, device=dev)[None]
+    # deterministic physical layout for prompt pages: seq-major
+    phys = (torch.arange(Bl * npages, dtype=I32, device=dev)
+            .reshape(1, Bl, npages).expand(DS, Bl, npages)) % geom.pool_pages
+    pf = phys.reshape(DS, Bl * npages).long()
+
+    for layer in range(cfg.n_layers):
+        p = T.layer_params(params, layer)
+        h = L.apply_norm(cfg, p, "ln1", x)
+        attn, (k, v) = T._attn_heads(cfg, p, h, positions, cfg.window)
+        x = x + attn @ p["wo"].to(x.dtype)
+        x = x + L.mlp(cfg, p, L.apply_norm(cfg, p, "ln2", x))
+        # bulk page fill: (B,S,KVH,D) -> (DS,Bl*NP,KVH,PS,D) -> pool scatter
+        for pool, kv in ((cache.kpool[layer], k), (cache.vpool[layer], v)):
+            kw = kv.reshape(DS, Bl, npages, PS, KVH, D).movedim(3, 4)
+            kw = kw.reshape(DS, Bl * npages, KVH, PS, D).to(pool.dtype)
+            for s in range(DS):
+                pool[s, pf[s]] = kw[s]
+    x = T.final_norm(cfg, params, x)
+    logits = T.logits_fn(cfg, params, x[:, -1])
+
+    # register page mappings (server-side batched inserts via the store)
+    pages = torch.arange(npages, dtype=I32, device=dev).expand(Bl, npages)
+    for s in range(DS):
+        keys = KC.page_keys(cache.seq_ids[s][:, None].expand(Bl, npages),
+                            pages)
+        geom.store.insert(cache.table[s], keys.reshape(-1, 4),
+                          KC.page_values(phys[s]).reshape(-1, 4))
+
+    plen = prompt_len if prompt_len is not None else S
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=I32, device=dev)
+
+    cache = cache._replace(
+        next_free=full((DS,), Bl * npages % geom.pool_pages),
+        seq_lens=full((DS, Bl), plen),
+        cur_page=phys[:, :, -1].contiguous(),
+        cur_off=full((DS, Bl), plen % PS))
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# sequence lifecycle (host-orchestrated, device-executed)
+# ---------------------------------------------------------------------------
+
+def release_sequence(geom: KC.PageGeometry, cache: KC.PagedCache,
+                     shard_idx: int, slot: int) -> KC.PagedCache:
+    """Finish a sequence: delete its page mappings (1 PM write each — the
+    paper's atomic deletion) and recycle the slot for a new request."""
+    seq = cache.seq_ids[shard_idx, slot]
+    npages = (cache.seq_lens[shard_idx, slot] + geom.page_size - 1) \
+        // geom.page_size
+    pages = torch.arange(geom.max_pages, dtype=I32, device=seq.device)
+    keys = KC.page_keys(seq.expand(geom.max_pages), pages)
+    # delete only the mapped pages (masked batch keeps PM-write accounting)
+    geom.store.delete(cache.table[shard_idx], keys, pages < npages)
+
+    def put(t, value):
+        t = t.clone()
+        t[shard_idx, slot] = value
+        return t
+
+    return cache._replace(
+        seq_ids=put(cache.seq_ids, cache.seq_ids.max() + 1),
+        seq_lens=put(cache.seq_lens, 0),
+        cur_page=put(cache.cur_page, 0),
+        cur_off=put(cache.cur_off, 0))
+
+
+# ---------------------------------------------------------------------------
+# content-addressed prefix sharing (hash-index-native feature)
+# ---------------------------------------------------------------------------
+
+def content_page_keys(tokens: torch.Tensor, page_size: int) -> torch.Tensor:
+    """Rolling content hashes per page: key_p = H(key_{p-1}, tokens of page p)
+    — identical prompt prefixes yield identical page keys across requests,
+    so the hash table maps them to ONE shared physical page.  Returns
+    (B, npages, 4) int32 key words."""
+    B, S = tokens.shape
+    npages = S // page_size
+    tp = tokens[:, :npages * page_size].reshape(B, npages, page_size)
+    ph = fold_u32(tp)                                        # (B, npages)
+    h = torch.zeros(B, dtype=torch.int64, device=tokens.device)
+    chained = []
+    for p in range(npages):
+        h = mix_pair(h, ph[:, p])
+        chained.append(h)
+    chained = torch.stack(chained, 1)                        # (B, npages)
+    pages = torch.arange(npages, device=tokens.device).expand(B, npages)
+    return to_i32(torch.stack([chained, pages, chained ^ pages,
+                               torch.full_like(chained, CONTENT_SALT)], -1))

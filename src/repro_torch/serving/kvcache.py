@@ -1,0 +1,217 @@
+"""Paged KV cache whose page table is a continuity hash store.
+
+Port of ``repro.serving.kvcache``.  The physical KV pool is a fixed set of
+pages per data shard; the logical->physical mapping (sequence_id,
+logical_page) -> physical_page lives in one hash-store table per shard
+behind the ``repro_torch.api`` store protocol.  Lookups on the decode hot
+path are the paper's client reads (ONE contiguous segment fetch per page
+translation, through the segment-probe kernel on a card); page allocation
+is the server-side insert with its indicator commit.
+
+Layout: pools (L, DS, NPl, KVH, PS, D); ``table`` is a tuple of DS store
+tables (the reference stacks them on a leading DS dim and vmaps the
+store).  Write paths update the pools and the tables IN PLACE (a copy per
+step would move the whole pool); the small per-sequence fields
+(``next_free``, ``seq_ids``, ``seq_lens``, ``cur_page``, ``cur_off``) are
+replaced, as in the reference.  Word fields (``seq_ids``, keys, values)
+are int32 tensors holding the reference's uint32 bits.
+
+Not ported yet: ``kv_dtype="int8"`` (``quant_store``/``dequant``), the
+``merged_attn`` decode path, ``open_new_pages_traced``, ``step_read_plan``
+and the recurrent/window caches of the ssm and hybrid families.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.api import ExecPolicy, make_store
+from repro_torch.core.words import resolve_device
+from repro_torch.models.config import ModelConfig, ShapeConfig
+
+I32 = torch.int32
+PAGE_SALT = 0xC0FFEE01
+_SALT_WORD = PAGE_SALT - (1 << 32)     # the same bits as an int32 word
+
+
+@dataclasses.dataclass(frozen=True)
+class PageGeometry:
+    layers: int
+    kv_heads: int
+    head_dim: int
+    page_size: int
+    max_pages: int            # logical pages per sequence
+    shards: int               # DS (data shards)
+    batch_per_shard: int
+    pool_pages: int           # NPl physical pages per shard
+    kv_dtype: str             # float32 | bfloat16 | float16
+    store: Any                # repro_torch.api store: the page-table backend
+
+    @property
+    def batch(self) -> int:
+        return self.shards * self.batch_per_shard
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device(self.store.device)
+
+
+def page_table_slots(geom_entries: int, load: float = 0.5) -> int:
+    """Storage units a page-table store needs for ``geom_entries``
+    mappings/shard at target ``load``."""
+    return int(np.ceil(geom_entries / load))
+
+
+def make_geometry(cfg: ModelConfig, shape: ShapeConfig, shards: int,
+                  page_size: int = 512, oversub: float = 1.0,
+                  kv_dtype: Optional[str] = None,
+                  scheme: str = "continuity",
+                  policy: Optional[ExecPolicy] = None,
+                  device: str = "cuda") -> PageGeometry:
+    """Geometry of a paged cache for ``shape`` on ``device`` (CUDA unless
+    the caller asks for the CPU); the store's default policy runs the
+    segment kernels."""
+    if shape.global_batch % shards:
+        raise ValueError(f"global batch {shape.global_batch} does not split "
+                         f"into {shards} shards")
+    kv_dtype = kv_dtype or cfg.kv_quant.replace("none", cfg.dtype)
+    if kv_dtype == "int8":
+        raise NotImplementedError("kv_dtype='int8' is not ported yet "
+                                  "(ROADMAP.md, Queue 1 #11)")
+    device = resolve_device(device)
+    bl = shape.global_batch // shards
+    maxp = (shape.seq_len + page_size - 1) // page_size
+    pool = max(1, int(np.ceil(bl * maxp * oversub)))
+    store = make_store(scheme, table_slots=page_table_slots(bl * maxp),
+                       policy=policy or ExecPolicy(), device=device)
+    return PageGeometry(
+        layers=cfg.n_layers, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        page_size=page_size, max_pages=maxp, shards=shards,
+        batch_per_shard=bl, pool_pages=pool, kv_dtype=kv_dtype, store=store)
+
+
+class PagedCache(NamedTuple):
+    kpool: torch.Tensor         # (L, DS, NPl, KVH, PS, D) kv_dtype
+    vpool: torch.Tensor
+    table: Tuple[Any, ...]      # DS store tables
+    next_free: torch.Tensor     # (DS,) int32 — physical page bump allocator
+    seq_ids: torch.Tensor       # (DS, Bl) int32 words: global sequence ids
+    seq_lens: torch.Tensor      # (DS, Bl) int32 tokens already cached
+    cur_page: torch.Tensor      # (DS, Bl) int32 physical id of open page
+    cur_off: torch.Tensor       # (DS, Bl) int32 write offset in open page
+
+
+def pool_shape(g: PageGeometry):
+    return (g.layers, g.shards, g.pool_pages, g.kv_heads, g.page_size,
+            g.head_dim)
+
+
+def create_cache(g: PageGeometry) -> PagedCache:
+    dev = g.device
+    DS, Bl = g.shards, g.batch_per_shard
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=I32, device=dev)
+
+    dt = getattr(torch, g.kv_dtype)
+    return PagedCache(
+        kpool=torch.zeros(pool_shape(g), dtype=dt, device=dev),
+        vpool=torch.zeros(pool_shape(g), dtype=dt, device=dev),
+        table=tuple(g.store.create() for _ in range(DS)),
+        next_free=zeros(DS),
+        seq_ids=torch.arange(DS * Bl, dtype=I32, device=dev).reshape(DS, Bl),
+        seq_lens=zeros(DS, Bl), cur_page=zeros(DS, Bl), cur_off=zeros(DS, Bl))
+
+
+# -- page-key construction ---------------------------------------------------
+
+def page_keys(seq_ids: torch.Tensor, logical_pages: torch.Tensor) -> torch.Tensor:
+    """(...,) ids + pages -> (..., 4) int32 hash-key words."""
+    s = seq_ids.to(I32)
+    p = logical_pages.to(I32)
+    salt = torch.full_like(s, _SALT_WORD)
+    return torch.stack([s, p, s ^ p, salt], dim=-1)
+
+
+def page_values(phys: torch.Tensor) -> torch.Tensor:
+    z = torch.zeros_like(phys, dtype=I32)
+    return torch.stack([phys.to(I32), z, z, z], dim=-1)
+
+
+# -- the paper's ops on the decode path --------------------------------------
+
+def _translation_keys(g: PageGeometry, seq_ids: torch.Tensor) -> torch.Tensor:
+    """(DS, Bl*MAXP, 4) page-table keys for every (sequence, logical page)
+    candidate translation of one decode step."""
+    DS, Bl = seq_ids.shape
+    pages = torch.arange(g.max_pages, dtype=I32, device=seq_ids.device)
+    keys = page_keys(seq_ids[..., None].expand(DS, Bl, g.max_pages),
+                     pages.expand(DS, Bl, g.max_pages))
+    return keys.reshape(DS, Bl * g.max_pages, 4)
+
+
+def lookup_pages(g: PageGeometry, table, seq_ids: torch.Tensor) -> torch.Tensor:
+    """Translate every (sequence, logical page) via a store lookup — the
+    paper's client read (for continuity: one contiguous segment fetch per
+    translation). Returns (DS, Bl, MAXP) int32 physical ids, -1 where
+    unmapped."""
+    DS, Bl = seq_ids.shape
+    keys = _translation_keys(g, seq_ids)
+    phys = []
+    for s in range(DS):
+        res = g.store.lookup(table[s], keys[s])
+        phys.append(torch.where(res.ok, res.values[:, 0], -1))
+    return torch.stack(phys).reshape(DS, Bl, g.max_pages)
+
+
+def flat_page_table(g: PageGeometry, page_table: torch.Tensor) -> torch.Tensor:
+    """(DS, Bl, MAXP) per-shard page ids -> (B, MAXP) ids into the pool
+    viewed as (DS*NPl, ...): shard s's ids are offset by s*NPl, -1 stays
+    -1."""
+    DS = page_table.shape[0]
+    base = (torch.arange(DS, dtype=I32, device=page_table.device)
+            * g.pool_pages)[:, None, None]
+    flat = torch.where(page_table >= 0, page_table + base, -1)
+    return flat.reshape(-1, page_table.shape[-1]).to(I32).contiguous()
+
+
+def _plan_page_allocation(g: PageGeometry, cache: PagedCache,
+                          need: torch.Tensor):
+    """Shared allocation prologue: physical ids (bump allocator, alloc
+    order, +wrap) and the (seq, page) -> phys mapping batch."""
+    rank = torch.cumsum(need.to(I32), dim=1) - 1              # alloc order
+    phys = (cache.next_free[:, None] + rank) % g.pool_pages   # bump (+wrap)
+    logical = torch.div(cache.seq_lens, g.page_size, rounding_mode="floor")
+    keys = page_keys(cache.seq_ids, logical)                  # (DS, Bl, 4)
+    return phys.to(I32), keys, page_values(phys)
+
+
+def open_new_pages(g: PageGeometry, cache: PagedCache,
+                   need: torch.Tensor) -> PagedCache:
+    """Allocate a physical page for each sequence with ``need`` set, insert
+    the (seq, page) -> phys mapping into the hash table (server-side write:
+    payload slots first, ONE atomic indicator commit), and open the page."""
+    phys, keys, vals = _plan_page_allocation(g, cache, need)
+    for s in range(g.shards):
+        g.store.insert(cache.table[s], keys[s], vals[s], need[s])
+    return cache._replace(
+        next_free=cache.next_free + need.sum(dim=1).to(I32),
+        cur_page=torch.where(need, phys, cache.cur_page),
+        cur_off=torch.where(need, 0, cache.cur_off).to(I32))
+
+
+def advance(g: PageGeometry, cache: PagedCache) -> PagedCache:
+    """Pre-step bookkeeping: open a fresh page for sequences whose next token
+    starts a new logical page."""
+    need = (cache.seq_lens % g.page_size) == 0
+    cache = open_new_pages(g, cache, need)
+    return cache._replace(cur_off=cache.seq_lens % g.page_size)
+
+
+def commit_token(cache: PagedCache) -> PagedCache:
+    """Post-step: the new token is now cached."""
+    return cache._replace(seq_lens=cache.seq_lens + 1)

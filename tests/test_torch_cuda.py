@@ -6,21 +6,29 @@ machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Integer outputs must match exactly.  The plain versions are themselves
-held against the JAX package on the CPU (``tests/test_torch_kernels.py``).
+Integer outputs must match exactly; attention outputs within the
+tolerances of ``tests/test_kernels.py`` (float32 2e-5, bfloat16 6e-2).
+The plain versions are themselves held against the JAX package on the CPU
+(``tests/test_torch_kernels.py``, ``tests/test_torch_paged_attn.py``).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch import api
+from repro_torch import api, convert
+from repro_torch.configs import smoke_config
 from repro_torch.core import continuity as ch
 from repro_torch.data import ycsb
-from repro_torch.kernels import mutate, probe
+from repro_torch.kernels import mutate, paged_attn, probe
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.mutate_ref import mutate_ref
+from repro_torch.kernels.paged_attn_ref import paged_attention_ref
 from repro_torch.kernels.probe_ref import probe_ref
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ShapeConfig
+from repro_torch.serving import engine as E
+from repro_torch.serving import kvcache as KC
 
 pytestmark = pytest.mark.cuda
 BIG = 0x7FFFFFFF
@@ -148,3 +156,137 @@ def test_lookup_policies_agree_on_card(dev):
         assert torch.equal(x, y)
     for x, y in zip(K.probe_lookup(cfg, t, q), ch.lookup(cfg, t, q)):
         assert torch.equal(x, y)
+
+
+def attn_case(seed, B, H, KVH, D, PS, MAXP, lens=None):
+    """Pages of a shuffled pool mapped for each sequence's live length;
+    the rest of the table unmapped (-1)."""
+    rng = np.random.RandomState(seed)
+    NP = B * MAXP + 2
+    q = (rng.randn(B, H, D) * 0.5).astype(np.float32)
+    kp = (rng.randn(NP, KVH, PS, D) * 0.3).astype(np.float32)
+    vp = rng.randn(NP, KVH, PS, D).astype(np.float32)
+    if lens is None:
+        lens = rng.randint(1, MAXP * PS, size=(B,))
+    lens = np.asarray(lens, np.int32)
+    pt = np.full((B, MAXP), -1, np.int32)
+    perm = rng.permutation(NP)
+    c = 0
+    for b in range(B):
+        for p in range(int(np.ceil(lens[b] / PS))):
+            pt[b, p] = perm[c]
+            c += 1
+    return [torch.from_numpy(a) for a in (q, kp, vp, pt, lens)]
+
+
+def on(args, dev, dtype):
+    q, kp, vp, pt, lens = args
+    return (q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
+            pt.to(dev), lens.to(dev))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 6e-2)])
+@pytest.mark.parametrize("B,H,KVH,D,PS,MAXP", [
+    (2, 4, 1, 16, 8, 3), (3, 8, 2, 32, 16, 4), (1, 16, 4, 64, 32, 2),
+    (4, 4, 4, 16, 8, 5),                    # G = 1
+    (5, 32, 4, 128, 16, 9),                 # Yi-6B's heads, G = 8
+    (2, 24, 2, 256, 64, 3),                 # G = 12 (two blocks), D = 256
+    (3, 8, 8, 40, 512, 2),                  # D not a multiple of 32
+])
+def test_paged_attention_matches_plain(dev, dtype, tol, B, H, KVH, D, PS,
+                                       MAXP):
+    args = on(attn_case(B * 100 + H, B, H, KVH, D, PS, MAXP), dev, dtype)
+    n0 = paged_attn.paged_attention.launches
+    got = paged_attn.paged_attention(*args)
+    want = paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert paged_attn.paged_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (B, H, D)
+    assert float((got.float() - want.float()).abs().max()) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 6e-2)])
+def test_paged_attention_page_boundaries(dev, dtype, tol):
+    PS, MAXP = 16, 4
+    args = on(attn_case(3, 7, 16, 2, 64, PS, MAXP,
+                        lens=[PS, PS + 1, 2 * PS, 2 * PS + 1, 1, 3 * PS,
+                              MAXP * PS]), dev, dtype)
+    got = paged_attn.paged_attention(*args)
+    want = paged_attention_ref(*args)
+    assert float((got.float() - want.float()).abs().max()) < tol
+
+
+def test_paged_attention_ignores_dead_pages(dev):
+    rng = np.random.RandomState(7)
+    B, H, KVH, D, PS, MAXP, NP = 2, 16, 2, 32, 8, 4, 16
+    q, kp, vp = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev)
+                 for s in ((B, H, D), (NP, KVH, PS, D), (NP, KVH, PS, D)))
+    pt = torch.full((B, MAXP), -1, dtype=torch.int32, device=dev)
+    pt[:, 0] = torch.tensor([0, 1], dtype=torch.int32)
+    pt[0, 2] = 5                        # mapped, but past the length
+    lens = torch.tensor([5, 3], dtype=torch.int32, device=dev)
+    base = paged_attn.paged_attention(q, kp, vp, pt, lens)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[2:] = 1e3
+    vp2[2:] = -1e3                      # poison every page not read
+    out = paged_attn.paged_attention(q, kp2, vp2, pt, lens)
+    torch.testing.assert_close(out, base, rtol=1e-6, atol=0)
+    torch.testing.assert_close(base, paged_attention_ref(q, kp, vp, pt, lens),
+                               rtol=0, atol=2e-5)
+
+
+def test_paged_attention_rejects_operands_it_does_not_take(dev):
+    q, kp, vp, pt, lens = on(attn_case(1, 2, 8, 2, 32, 8, 3), dev,
+                             torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        paged_attn.paged_attention(q.half(), kp.half(), vp.half(), pt, lens)
+    with pytest.raises(ValueError, match="vpool must be"):
+        paged_attn.paged_attention(q, kp, vp.bfloat16(), pt, lens)
+    with pytest.raises(ValueError, match="int32"):
+        paged_attn.paged_attention(q, kp, vp, pt.long(), lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_attn.paged_attention(q, kp.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), vp, pt, lens)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        paged_attn.paged_attention(q[..., :12].contiguous(),
+                                   kp[..., :12].contiguous(),
+                                   vp[..., :12].contiguous(), pt, lens)
+    with pytest.raises(ValueError, match="expected"):
+        paged_attn.paged_attention(q, kp, vp, pt.cpu(), lens)
+
+
+def test_serve_steps_on_card_match_cpu(dev):
+    """Prefill and decode on the card (probe, paged-attention and mutate
+    kernels) against the same on the CPU (plain versions): logits within
+    1e-4, page tables and small fields byte-equal, pools within 1e-5."""
+    cfg = smoke_config("yi-6b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    shape = ShapeConfig("t", seq_len=128, global_batch=4, kind="decode")
+    rng = np.random.RandomState(2)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 32)).astype(
+        np.int32))
+    fed = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 6)).astype(np.int32))
+    runs = []
+    for d in ("cpu", "cuda"):
+        p = {k: v.to(d) for k, v in params.items() if k != "blocks"}
+        p["blocks"] = {k: v.to(d) for k, v in params["blocks"].items()}
+        geom = KC.make_geometry(cfg, shape, shards=2, page_size=16, device=d)
+        lg, cache = E.prefill(cfg, geom, p, prompt.to(d),
+                              KC.create_cache(geom))
+        logits = [lg]
+        for i in range(fed.shape[1]):
+            lg, cache = E.serve_step(cfg, geom, p, fed[:, i].to(d), cache)
+            logits.append(lg)
+        cache = E.release_sequence(geom, cache, 1, 0)
+        runs.append((logits, convert.cache_to_numpy(cache)))
+    (lc, sc), (lg_, sg) = runs
+    for a, b in zip(lc, lg_):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+    for f in sc["table"]:
+        assert np.array_equal(sc["table"][f], sg["table"][f]), f
+    for f in ("next_free", "seq_ids", "seq_lens", "cur_page", "cur_off"):
+        assert np.array_equal(sc[f], sg[f]), f
+    for f in ("kpool", "vpool"):
+        np.testing.assert_allclose(sg[f], sc[f], atol=1e-5, rtol=0)
