@@ -25,11 +25,13 @@ Phases, in order:
 4. Paged attention vs plain: the kernel against ``paged_attn_ref`` in
    float32 (2e-5) and bfloat16 (6e-2) on the shapes of
    ``tests/test_kernels.py``, G = 1 and 8, lengths on page boundaries and
-   one past them, poisoned unmapped pages, and Yi-6B's decode shape on a
-   pool of phase 5's size (there also within 2 % of the largest plain
+   one past them, a length of 0 (zeros), poisoned unmapped pages, and
+   Yi-6B's decode shape on a pool of phase 5's size at batch 32 and at the
+   launcher's batch of 4 (there also within 2 % of the largest plain
    output, a limit that an output one token or one page short is shown to
-   break); timed beside its bound, its plain version and
-   ``scaled_dot_product_attention`` over the same tokens laid out densely.
+   break); timed at both batches beside its bound, its plain version,
+   and ``scaled_dot_product_attention`` over the same tokens laid out
+   densely.
 5. Serving Yi-6B at full width (32 layers, d 4096, 32/4 heads, vocab
    64,000; bf16 weights from a seeded generator, residual output
    projections scaled by 1/sqrt(2L)) through the port's ``launch/serve``
@@ -37,14 +39,18 @@ Phases, in order:
    2,048 tokens prefilled, 63 greedy decode steps against the hash-paged
    pool (page size 16, 132 pages per sequence), one more step run with the
    plain attention and with the kernel (each layer's kernel output held
-   against the plain version on that layer's inputs) and timed part by
-   part, then every sequence released.  Page-table contents are checked
-   exactly against the host-computed bump allocation; the last step's
-   logits against the dense forward over the same tokens; a float32 twin
-   (4 sequences, 512-token prompts) against its float32 forward, at the
-   launcher's init and on the served weights.  The checks run outside the
-   count: the launches reported are prefill's, the 63 steps' and the
-   releases'.
+   against the plain version on that layer's inputs: the bf16 check of the
+   kernel in the step) and timed part by part, the whole step timed
+   ``STEP_REPS`` times (median and range) and once more under
+   ``torch.profiler`` (its device-busy time against that median), then
+   every sequence released.  Page-table contents are checked exactly
+   against the host-computed bump allocation; the last step's logits
+   against the dense forward over the same tokens; a float32 twin (4
+   sequences, 512-token prompts) against its float32 forward, and one
+   float32 step with the kernel against the same step with the plain
+   attention (within 6e-2), at the launcher's init and on the served
+   weights.  The checks run outside the count: the launches reported are
+   prefill's, the 63 steps' and the releases'.
 6. The continuous batcher on the same weights answers 48 requests in 32
    slots.
 7. Report: one JSON line of every kernel's launches on the serving path
@@ -84,6 +90,7 @@ PAGE_SIZE = 16
 CHECK_SEQS = 4                 # sequences held against the dense forward
 FORWARD_TOL = 0.25             # bf16 logits of two evaluations, std ~1.3
 F32_FORWARD_TOL = 1e-3         # the same in float32 (same weights upcast)
+F32_STEP_TOL = 6e-2            # float32 step, kernel vs plain attention
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 6e-2}
 # bf16 comparisons at the serving shape, whose outputs can be far below 1:
 # the limit is also held to this share of the largest plain output (~2.5
@@ -92,6 +99,8 @@ ATTN_REL = 2e-2
 BATCH_REQUESTS = 48
 KERNEL_SLEEP = 40_000_000      # device-sleep cycles ahead of a timed kernel
 PLAIN_SLEEP = 200_000_000     # ... of a timed plain version (~100 ms)
+LAUNCHER_B = 4                 # launch.serve's default batch
+STEP_REPS = 9                  # timings of the whole decode step
 
 
 def _check(cond, what: str) -> None:
@@ -598,60 +607,82 @@ def attention_phase(torch, card) -> dict:
         kp[~mapped], vp[~mapped] = 1e3, -1e3   # poison every unmapped page
         _check(torch.equal(kern(q, kp, vp, pt, lens), base),
                f"poisoned unmapped pages leave the output unchanged ({dtype})")
+        _check(torch.equal(kern(q, kp, vp, pt, lens), base),
+               f"two calls give bit-identical outputs ({dtype})")
+        q, kp, vp, pt, lens = _attn_case(torch, 11, 4, 16, 2, 64, PS, 4,
+                                         lens=[0, 1, 3 * PS, 4 * PS],
+                                         dtype=dtype)
+        got = kern(q, kp, vp, pt, lens)
+        _check(not bool(got[0].any()), f"a length of 0 gives zeros ({dtype})")
+        compare("lengths 0, 1, on a page boundary, full",
+                (q[1:], kp, vp, pt[1:], lens[1:]))
+        _check(torch.equal(got[1:], kern(q[1:], kp, vp, pt[1:], lens[1:])),
+               f"a length-0 neighbour leaves the others unchanged ({dtype})")
 
-    # Yi-6B's decode shape on a pool of phase 5's size, at its last step;
-    # scores of std 1.2, so a few dozen tokens carry each output and one
-    # token less moves it by far more than the limit
-    B, H, KVH, D, MAXP = SERVE_B, 32, 4, 128, -(-(PROMPT_LEN + GEN) // PS)
-    NP = B * MAXP
+    # Yi-6B's decode shape on a pool of phase 5's size, at its last step,
+    # at the serving batch and the launcher's; scores of std 1.2, so a few
+    # dozen tokens carry each output and one token less moves it by far
+    # more than the limit
+    H, KVH, D, MAXP = 32, 4, 128, -(-(PROMPT_LEN + GEN) // PS)
+    NP = SERVE_B * MAXP
     last = PROMPT_LEN + GEN - 1
-    batches = [_attn_case(torch, 20 + i, B, H, KVH, D, PS, MAXP, NP=NP,
-                          lens=[last] * B, dtype=torch.bfloat16, q_scale=4.0)
-               for i in range(4)]
-    full = batches[0]
-    want = plain(*full).float()
-    limit = _attn_limit(want)
-    e_full = float((kern(*full).float() - want).abs().max())
-    _check(e_full <= limit, f"full-size paged attention within {limit:.3g} "
-           f"of its plain version ({e_full})")
-    q, kp, vp, pt, lens = full
-    for cut, what in ((1, "its last token"), (PS, "its last page")):
-        moved = float((plain(q, kp, vp, pt, lens - cut).float() - want)
-                      .abs().max())
-        _check(moved > limit, f"the full-size limit rejects an output that "
-               f"drops {what} ({moved} vs {limit:.3g})")
-    ms = _device_ms(torch, lambda a: kern(*a), batches, 100, KERNEL_SLEEP)
-    plain_ms = _device_ms(torch, lambda a: plain(*a), batches, 10,
-                          PLAIN_SLEEP)
-
-    def dense(a):            # the same live tokens as a (B, KVH, T, D) cache
-        q, kp, vp, pt, lens = a
-        T_ = int(lens[0])
-        idx = pt[:, :-(-T_ // PS)].long()
-        return [x[idx].permute(0, 2, 1, 3, 4).reshape(B, KVH, -1, D)[:, :, :T_]
-                .contiguous() for x in (kp, vp)]
-    dense_b = [(a[0][:, :, None], *dense(a)) for a in batches]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = _device_ms(torch, lambda a: sdpa(*a, enable_gqa=True), dense_b,
-                        100, KERNEL_SLEEP)
-    lib_out = sdpa(*dense_b[0], enable_gqa=True)[:, :, 0]
-    _check(float((lib_out.float() - kern(*full).float()).abs().max())
-           < ATTN_TOL["bfloat16"], "the library call computes the same")
-    nbytes = (B * last * KVH * D * 2 * 2          # live K and V rows, bf16
-              + 2 * B * H * D * 2                 # q and out
-              + B * MAXP * 4 + B * 4)             # page table and lengths
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    timing = {}
+    for B in (SERVE_B, LAUNCHER_B):
+        batches = [_attn_case(torch, 20 + i, B, H, KVH, D, PS, MAXP, NP=NP,
+                              lens=[last] * B, dtype=torch.bfloat16,
+                              q_scale=4.0) for i in range(4)]
+        full = batches[0]
+        want = plain(*full).float()
+        limit = _attn_limit(want)
+        e_full = float((kern(*full).float() - want).abs().max())
+        _check(e_full <= limit, f"B={B} paged attention within {limit:.3g} "
+               f"of its plain version ({e_full})")
+        q, kp, vp, pt, lens = full
+        for cut, what in ((1, "its last token"), (PS, "its last page")):
+            moved = float((plain(q, kp, vp, pt, lens - cut).float() - want)
+                          .abs().max())
+            _check(moved > limit, f"the B={B} limit rejects an output that "
+                   f"drops {what} ({moved} vs {limit:.3g})")
+        ms = _device_ms(torch, lambda a: kern(*a), batches, 100, KERNEL_SLEEP)
+        plain_ms = _device_ms(torch, lambda a: plain(*a), batches, 10,
+                              PLAIN_SLEEP)
+
+        def dense(a):        # the same live tokens as a (B, KVH, T, D) cache
+            q, kp, vp, pt, lens = a
+            T_ = int(lens[0])
+            idx = pt[:, :-(-T_ // PS)].long()
+            return [x[idx].permute(0, 2, 1, 3, 4).reshape(len(q), KVH, -1, D)
+                    [:, :, :T_].contiguous() for x in (kp, vp)]
+        dense_b = [(a[0][:, :, None], *dense(a)) for a in batches]
+        lib_ms = _device_ms(torch, lambda a: sdpa(*a, enable_gqa=True),
+                            dense_b, 100, KERNEL_SLEEP)
+        lib_out = sdpa(*dense_b[0], enable_gqa=True)[:, :, 0]
+        _check(float((lib_out.float() - kern(*full).float()).abs().max())
+               < ATTN_TOL["bfloat16"], "the library call computes the same")
+        nbytes = (B * last * KVH * D * 2 * 2          # live K and V rows, bf16
+                  + 2 * B * H * D * 2                 # q and out
+                  + B * MAXP * 4 + B * 4)             # page table and lengths
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        from repro_torch.kernels import _cuda
+        splits = _cuda.paged_attn_splits(
+            B * KVH, MAXP, _cuda.sm_count(0), _cuda.resident_blocks(
+                0, _cuda.PAGED_ATTN_DTYPES[torch.bfloat16], D))
+        timing[B] = (e_full, ms, plain_ms, bound_ms, lib_ms)
+        print(f"paged_attention: {ms * 1e3:.2f} us on the device per launch "
+              f"at B={B} H={H} KVH={KVH} D={D} PS={PS} len={last}, {splits} "
+              f"splits (bound {bound_ms * 1e3:.2f} us from "
+              f"{nbytes / 1e6:.2f} MB; plain version {plain_ms * 1e3:.2f} us; "
+              f"scaled_dot_product_attention on the dense cache, gather "
+              f"excluded, {lib_ms * 1e3:.2f} us); max_abs_err {e_full:.3g}, "
+              f"limit {limit:.3g} [{card}]", flush=True)
+        del batches, dense_b, full, q, kp, vp
+        torch.cuda.empty_cache()
+    e_full, ms, plain_ms, bound_ms, lib_ms = timing[SERVE_B]
     print(f"phase 4: paged attention equals its plain version (max_abs_err "
           f"float32 {errs['float32']:.3g}, bfloat16 {errs['bfloat16']:.3g}; "
-          f"Yi-6B shape {e_full:.3g}, limit {limit:.3g}); poisoned unmapped "
-          f"pages ignored",
-          flush=True)
-    print(f"paged_attention: {ms * 1e3:.2f} us on the device per launch at "
-          f"B={B} H={H} KVH={KVH} D={D} PS={PS} len={last} (bound "
-          f"{bound_ms * 1e3:.2f} us from {nbytes / 1e6:.2f} MB; plain version "
-          f"{plain_ms * 1e3:.2f} us; scaled_dot_product_attention on the "
-          f"dense cache, gather excluded, {lib_ms * 1e3:.2f} us) [{card}]",
-          flush=True)
+          f"Yi-6B shape {e_full:.3g}); a length of 0 gives zeros; poisoned "
+          f"unmapped pages ignored; two calls bit-identical", flush=True)
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
             "replaces": "src/repro/kernels/paged_attn.py:80",
@@ -734,10 +765,35 @@ def _in_situ_attention(run) -> list:
     return errs
 
 
+def _device_profile(torch, fn):
+    """One ``fn()`` under ``torch.profiler`` with CUDA activity: (host ms,
+    device-busy ms: the union of every device op's interval, so ops that
+    overlap (the attention merge launched early) count once, the five
+    device ops that take the most time as (name, ms, count))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, t = _timed(torch, fn)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    return (t * 1e3, busy / 1e3,
+            [(e.key, e.self_device_time_total / 1e3, e.count)
+             for e in ops[:5]])
+
+
 def float32_twin(torch, cfg, params, prompts, what) -> float:
     """The serving path in float32 at full width, small batch, on the
     weights upcast: decode's last logits against the float32 dense forward
-    over the same tokens.  Returns the max abs difference."""
+    over the same tokens, and one more step with the kernel against the
+    same step with the plain attention.  Returns the first difference."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     from repro_torch.serving import kvcache as KC
@@ -751,11 +807,24 @@ def float32_twin(torch, cfg, params, prompts, what) -> float:
     x, _ = T.forward(cfg32, p32, torch.cat(
         [prompts[:B32, :P32], t32[:, :G32 - 1]], 1))
     err32 = float((lg32 - T.logits_fn(cfg32, p32, x[:, -1])).abs().max())
+
+    def step(attention):     # one more step on the same state, uncommitted
+        c = KC.advance(g32, c32)
+        pt = KC.lookup_pages(g32, c.table, c.seq_ids)
+        x = attention(lambda: T.paged_layers(cfg32, p32, t32[:, -1], c, g32,
+                                             pt))
+        return T.logits_fn(cfg32, p32, T.final_norm(cfg32, p32, x))
+    err_step = float((step(lambda run: run()) - step(_plain_attention))
+                     .abs().max())
     print(f"float32 twin, {what} ({B32} sequences, {P32}-token prompts, "
           f"{G32} generated): decode vs dense forward max_abs_err "
-          f"{err32:.3g} (tolerance {F32_FORWARD_TOL})", flush=True)
+          f"{err32:.3g} (tolerance {F32_FORWARD_TOL}); one step with the "
+          f"kernel vs with the plain attention {err_step:.3g} (tolerance "
+          f"{F32_STEP_TOL})", flush=True)
     _check(err32 <= F32_FORWARD_TOL, f"float32 paged decode equals the "
            f"float32 dense forward ({what})")
+    _check(err_step <= F32_STEP_TOL, f"the float32 step's logits with the "
+           f"kernel equal those with the plain attention ({what})")
     del p32, c32, x
     torch.cuda.empty_cache()
     return err32
@@ -898,8 +967,20 @@ def serving_phase(torch, card):
         lg1, parts["final norm + logits"] = _timed(
             torch, lambda: T.logits_fn(cfg, params,
                                        T.final_norm(cfg, params, x)))
-        return KC.commit_token(c), parts, layer_err, lg1, lg_plain
-    cache, parts, layer_err, lg1, lg_plain = _uncounted(check_step)
+
+        def whole():         # the step again from the same state, no syncs
+            c1 = KC.advance(geom, cache)
+            pt1 = KC.lookup_pages(geom, c1.table, c1.seq_ids)
+            x1 = T.paged_layers(cfg, params, tok, c1, geom, pt1)
+            return T.logits_fn(cfg, params, T.final_norm(cfg, params, x1))
+        t_whole = sorted(_timed(torch, whole)[1] * 1e3
+                         for _ in range(STEP_REPS))
+        prof = _device_profile(torch, whole)
+        return (KC.commit_token(c), parts, layer_err, lg1, lg_plain,
+                t_whole, prof)
+    (cache, parts, layer_err, lg1, lg_plain, t_whole,
+     (prof_ms, busy_ms, top)) = _uncounted(check_step)
+    step_ms = t_whole[STEP_REPS // 2]
     worst = max(layer_err, key=lambda el: el[0] / el[1])
     _check(len(layer_err) == cfg.n_layers
            and all(e <= lim for e, lim in layer_err),
@@ -918,7 +999,20 @@ def serving_phase(torch, card):
           f"{_diff_stats(torch, lg1, lg_plain)}", flush=True)
     print("the step by part (host clock, synchronized): "
           + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in parts.items())
-          + f"; sum {sum(parts.values()) * 1e3:.3f} ms [{card}]", flush=True)
+          + f"; sum {sum(parts.values()) * 1e3:.3f} ms; the whole step "
+          f"without syncs between parts, {STEP_REPS} runs: median "
+          f"{step_ms:.3f} ms, min {t_whole[0]:.3f}, max {t_whole[-1]:.3f} "
+          f"[{card}]", flush=True)
+    if busy_ms > 0:
+        print(f"device-busy share of one step: {busy_ms:.3f} ms of device "
+              f"ops in one profiled step ({prof_ms:.3f} ms of host clock "
+              f"under the profiler) over the median unprofiled step "
+              f"{step_ms:.3f} ms = {busy_ms / step_ms:.3f}; top device ops: "
+              + "; ".join(f"{k} {v:.3f} ms x{n}" for k, v, n in top)
+              + f" [{card}]", flush=True)
+    else:
+        print("device-busy share of one step: not measured (the profiler "
+              "recorded no device op)", flush=True)
 
     # release every sequence: deletes through the mutation-plan kernel
     def release_all(c):

@@ -11,6 +11,7 @@ source in parallel.  Nothing is built or loaded at import.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -106,8 +107,8 @@ def segment_probe_lib() -> ctypes.CDLL:
 def paged_attn_lib() -> ctypes.CDLL:
     """The paged-attention library, built and loaded once per process."""
     return _library("paged_attn.cu", "paged_attn_launch",
-                    [ctypes.c_int] + [ctypes.c_void_p] * 6
-                    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+                    [ctypes.c_int] + [ctypes.c_void_p] * 7
+                    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
 
 
 MODE_PROBE, MODE_PROBE_FP, MODE_MUTATE = 0, 1, 2
@@ -173,12 +174,63 @@ def launch_segment_probe(mode: int, rows, indicators, fps, prio, pairs,
 
 
 PAGED_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SPLITS = 1024     # the merge kernel's limit (csrc/paged_attn.cu)
 
 
-def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float):
-    """Check the operands and launch the paged-attention kernel on the
-    current stream; returns the (B, H, D) output in q's dtype.  Raises on
-    any operand it does not take or a failed launch."""
+def paged_attn_splits(seq_heads: int, max_pages: int, sms: int,
+                      resident: int) -> int:
+    """Splits of each sequence's page range for ``seq_heads`` = B * KVH
+    (sequence, kv head) pairs: as many as fill one wave of resident blocks
+    (``resident`` on each of ``sms`` SMs; a second wave would pay every
+    block's fixed start and merge again), at least one, at most one per
+    page, and none left without a page."""
+    want = resident * sms // max(seq_heads, 1)
+    splits = max(1, min(max_pages, want))
+    return -(-max_pages // -(-max_pages // splits))
+
+
+def split_pages(max_pages: int, splits: int) -> list:
+    """The logical page range ``[begin, end)`` of each split, as the kernel
+    cuts them: ``ceil(max_pages / splits)`` pages each, in order; a split
+    past the last page is empty."""
+    per = -(-max_pages // splits)
+    return [(min(s * per, max_pages), min((s + 1) * per, max_pages))
+            for s in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index`` (read once per process)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(index: int, dtype: int, D: int) -> int:
+    """Split-kernel blocks that one SM of CUDA device ``index`` holds at
+    once for operands of ``dtype`` (a ``PAGED_ATTN_DTYPES`` code) and head
+    dim ``D``: the runtime's occupancy of the instantiation the launch
+    picks, with its registers and shared memory (asked once per process;
+    a host call, no device sync)."""
+    fn = paged_attn_lib().paged_attn_resident_blocks
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = fn(dtype, D, ctypes.byref(blocks))
+    if err or blocks.value < 1:
+        raise RuntimeError(f"paged_attn_resident_blocks failed: cudaError "
+                           f"{err}, {blocks.value} blocks")
+    return blocks.value
+
+
+def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float,
+                      splits: int = 0):
+    """Check the operands and launch the paged-attention kernels (the split
+    kernel and the merge) on the current stream; returns the (B, H, D)
+    output in q's dtype.  ``splits`` 0 lets the host choose
+    (``paged_attn_splits``); tests pass others.  Reads nothing back from
+    the device.  Raises on any operand it does not take or a failed
+    launch."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -208,16 +260,29 @@ def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float):
                          f"{tuple(kpool.shape)}")
     _need(page_table, "page_table", (B, MAXP), dev)
     _need(seq_lens, "seq_lens", (B,), dev)
+    if not 0 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits must be 0 (host's choice) to {MAX_SPLITS}, "
+                         f"got {splits}")
+    if NP * KVH * PS >= 2 ** 31:
+        raise ValueError(f"pools of {NP * KVH * PS} rows: the kernel indexes "
+                         f"rows with 32-bit integers")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    if not splits:
+        splits = paged_attn_splits(
+            B * KVH, MAXP, sm_count(dev.index),
+            resident_blocks(dev.index, PAGED_ATTN_DTYPES[q.dtype], D))
+    workspace = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
+                            device=dev)
     lib = paged_attn_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paged_attn_launch(
             PAGED_ATTN_DTYPES[q.dtype], q.data_ptr(), kpool.data_ptr(),
             vpool.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
-            out.data_ptr(), B, H, KVH, D, NP, PS, MAXP, float(scale), stream)
+            out.data_ptr(), workspace.data_ptr(), B, H, KVH, D, NP, PS, MAXP,
+            splits, float(scale), stream)
     if err:
         raise RuntimeError(f"paged_attn_launch failed: cudaError {err}")
     return out

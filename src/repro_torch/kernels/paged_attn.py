@@ -1,15 +1,18 @@
 """Paged-attention kernel: the decode step's attention over the page pool.
 
 Replaces the TPU kernel ``src/repro/kernels/paged_attn.py``
-``paged_attention`` (``_paged_attn_kernel``) with the CUDA kernel in
-``csrc/paged_attn.cu``: for each (sequence, kv head) it walks the
-sequence's physical pages through the hash-indexed page table and keeps a
-float32 online softmax, reading only live tokens of mapped pages.
+``paged_attention`` (``_paged_attn_kernel``) with the CUDA kernels in
+``csrc/paged_attn.cu``: the sequence's physical pages are reached through
+the hash-indexed page table, with a float32 online softmax, reading only
+live tokens of mapped pages.
 
 Bound: device-memory bytes — each live token's K and V rows once, plus q,
-the page table and the output.  Design: one block per (sequence, kv head,
-up to 8 query heads), one warp per query head, K/V tiles staged in shared
-memory with 16-byte loads; see the source.
+the page table and the output.  Design: split-KV over pages (one block per
+(sequence, kv head, split of the page range), float32 partials merged in
+split order by a second kernel of the same call); bf16 tiles staged by TMA
+bulk copies and multiplied on the tensor cores (mma.sync), float32 on CUDA
+cores; see the source.  The host picks the split count
+(``_cuda.paged_attn_splits``) without reading the device.
 
 On a CPU tensor the wrapper runs the plain version
 (``paged_attn_ref.paged_attention_ref``); on a CUDA tensor it launches

@@ -20,7 +20,7 @@ from repro_torch import api, convert
 from repro_torch.configs import smoke_config
 from repro_torch.core import continuity as ch
 from repro_torch.data import ycsb
-from repro_torch.kernels import mutate, paged_attn, probe
+from repro_torch.kernels import _cuda, mutate, paged_attn, probe
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.mutate_ref import mutate_ref
 from repro_torch.kernels.paged_attn_ref import paged_attention_ref
@@ -158,12 +158,12 @@ def test_lookup_policies_agree_on_card(dev):
         assert torch.equal(x, y)
 
 
-def attn_case(seed, B, H, KVH, D, PS, MAXP, lens=None):
+def attn_case(seed, B, H, KVH, D, PS, MAXP, lens=None, q_scale=0.5):
     """Pages of a shuffled pool mapped for each sequence's live length;
-    the rest of the table unmapped (-1)."""
+    the rest of the table unmapped (-1).  Scores have std q_scale * 0.3."""
     rng = np.random.RandomState(seed)
     NP = B * MAXP + 2
-    q = (rng.randn(B, H, D) * 0.5).astype(np.float32)
+    q = (rng.randn(B, H, D) * q_scale).astype(np.float32)
     kp = (rng.randn(NP, KVH, PS, D) * 0.3).astype(np.float32)
     vp = rng.randn(NP, KVH, PS, D).astype(np.float32)
     if lens is None:
@@ -255,6 +255,131 @@ def test_paged_attention_rejects_operands_it_does_not_take(dev):
                                    vp[..., :12].contiguous(), pt, lens)
     with pytest.raises(ValueError, match="expected"):
         paged_attn.paged_attention(q, kp, vp, pt.cpu(), lens)
+
+
+def split_case(dev, dtype, splits, G=8, D=128, PS=16, MAXP=9, seed=0):
+    """Lengths 0, 1, full, and one before and one past the first two split
+    boundaries of ``splits`` (page boundaries of the split kernel); the
+    full-length sequence has an unmapped page at the first boundary."""
+    edges = [e * PS for _, e in _cuda.split_pages(MAXP, splits)
+             if 0 < e < MAXP] or [PS]
+    lens = [0, 1, MAXP * PS] + [x for e in edges[:2] for x in (e - 1, e + 1)]
+    q, kp, vp, pt, ln = attn_case(seed, len(lens), 2 * G, 2, D, PS, MAXP,
+                                  lens=lens)
+    pt[2, edges[0] // PS] = -1
+    return on((q, kp, vp, pt, ln), dev, dtype)
+
+
+def check_split_call(args, tol, splits):
+    """The kernel at ``splits`` against the plain version: zeros where the
+    length is 0 (the plain version's softmax over nothing is NaN), within
+    ``tol`` elsewhere, and bit-identical on a second call."""
+    q = args[0]
+    scale = float(1.0 / q.shape[-1] ** 0.5)
+    got = _cuda.launch_paged_attn(*args, scale, splits=splits)
+    want = paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    live = args[4] > 0
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    assert float((got[live].float() - want[live].float()).abs().max()) < tol
+    assert torch.equal(_cuda.launch_paged_attn(*args, scale, splits=splits),
+                       got)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 6e-2)])
+@pytest.mark.parametrize("splits", [0, 1, 2, 3, 20])   # 20 > 9 pages
+def test_paged_attention_split_counts(dev, dtype, tol, splits):
+    check_split_call(split_case(dev, dtype, splits or 3), tol, splits)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 6e-2)])
+@pytest.mark.parametrize("G,D,PS,MAXP", [
+    (1, 40, 512, 3), (8, 40, 512, 3), (12, 40, 512, 3),
+    (1, 256, 512, 3), (8, 256, 512, 3), (12, 256, 512, 3),
+    (20, 64, 16, 7),                        # two 16-head groups in bf16
+])
+@pytest.mark.parametrize("splits", [0, 2])
+def test_paged_attention_split_shapes(dev, dtype, tol, G, D, PS, MAXP,
+                                      splits):
+    check_split_call(split_case(dev, dtype, splits or 2, G, D, PS, MAXP,
+                                seed=G * D), tol, splits)
+
+
+def test_paged_attention_serving_shape_bf16(dev):
+    """Yi-6B's last decode step (B 32, H 32, KVH 4, D 128, PS 16, 2,111
+    tokens) in bf16: within 6e-2 and 2 % of the largest plain output, a
+    limit that an output one token or one page short breaks."""
+    PS, MAXP, n = 16, 132, 2111
+    q, kp, vp, pt, lens = on(attn_case(5, 32, 32, 4, 128, PS, MAXP,
+                                       lens=[n] * 32, q_scale=4.0), dev,
+                             torch.bfloat16)
+    got = K.paged_attention(q, kp, vp, pt, lens).float()
+    want = paged_attention_ref(q, kp, vp, pt, lens).float()
+    limit = min(6e-2, 2e-2 * float(want.abs().max()))
+    assert float((got - want).abs().max()) <= limit
+    for cut in (1, PS):
+        short = paged_attention_ref(q, kp, vp, pt, lens - cut).float()
+        assert float((short - want).abs().max()) > limit
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_paged_attention_poison_bf16_bit_identical(dev, splits):
+    """Poison in every page not read (unmapped, or mapped past the length)
+    leaves the bf16 output bit-identical."""
+    q, kp, vp, pt, lens = split_case(dev, torch.bfloat16, 3, seed=9)
+    free = sorted(set(range(kp.shape[0])) - set(pt.flatten().tolist()))
+    pt[3, -1] = free[0]               # mapped, but past that length
+    scale = float(1.0 / q.shape[-1] ** 0.5)
+    base = _cuda.launch_paged_attn(q, kp, vp, pt, lens, scale, splits=splits)
+    read = torch.zeros(kp.shape[0], dtype=torch.bool, device=dev)
+    for b in range(pt.shape[0]):
+        n = -(-int(lens[b]) // kp.shape[2])
+        ids = pt[b, :n]
+        read[ids[ids >= 0].long()] = True
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[~read], vp2[~read] = 1e3, -1e3
+    out = _cuda.launch_paged_attn(q, kp2, vp2, pt, lens, scale,
+                                  splits=splits)
+    assert torch.equal(out, base)
+
+
+def test_paged_attention_split_count_fills_one_wave(dev):
+    """The host's split count comes from the occupancy of the instantiation
+    launched: two bf16 blocks of D 128 fit an SM's shared memory, one of
+    D 256; the blocks of one call fill at most one wave."""
+    bf16, f32 = (_cuda.PAGED_ATTN_DTYPES[t]
+                 for t in (torch.bfloat16, torch.float32))
+    index = torch.cuda.current_device()
+    assert _cuda.resident_blocks(index, bf16, 128) == 2
+    assert _cuda.resident_blocks(index, bf16, 256) == 1
+    assert _cuda.resident_blocks(index, bf16, 40) >= 2
+    assert _cuda.resident_blocks(index, f32, 128) >= 1
+    sms = _cuda.sm_count(index)
+    for dtype, D in ((bf16, 128), (bf16, 256), (f32, 128)):
+        resident = _cuda.resident_blocks(index, dtype, D)
+        for seq_heads in (16, 128):
+            splits = _cuda.paged_attn_splits(seq_heads, 132, sms, resident)
+            assert seq_heads * splits <= max(seq_heads, resident * sms)
+
+
+def test_paged_attention_makes_no_host_sync(dev):
+    """One decode layer's call reads nothing back from the device."""
+    args = on(attn_case(4, 32, 32, 4, 128, 16, 132, lens=[2111] * 32), dev,
+              torch.bfloat16)
+    K.paged_attention(*args)          # build and load outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):    # the check is live
+            args[4].max().item()
+        out = K.paged_attention(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(out.float().isfinite().all())
 
 
 def test_serve_steps_on_card_match_cpu(dev):

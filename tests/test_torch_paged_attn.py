@@ -6,6 +6,11 @@ The same numpy inputs go through the JAX Pallas kernel (interpret mode, as
 tensor.  Tolerances are those of ``tests/test_kernels.py``: float32 2e-5,
 bfloat16 6e-2.  The CUDA kernel itself is held against the port's plain
 version on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+``split_combine`` below mirrors the CUDA kernel's split-KV arithmetic in
+plain PyTorch (float32 partials per split of the page range, merged in
+split order), so the split-and-merge scheme is held against the JAX
+package here, where the kernel itself cannot run.
 """
 
 import jax.numpy as jnp
@@ -15,6 +20,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels.paged_attn_ref import paged_attention_ref as jax_ref
+from repro_torch.kernels import _cuda
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attn
 
@@ -112,3 +118,107 @@ def test_ignores_dead_pages():
     out = tops.paged_attention(t(q), t(kp2), t(vp2), t(pt), t(lens))
     np.testing.assert_allclose(out.numpy(), base.numpy(), rtol=1e-6)
     np.testing.assert_allclose(out.numpy(), jbase, atol=2e-5)
+
+
+def split_combine(q, kp, vp, pt, lens, splits):
+    """The split kernel's arithmetic in plain PyTorch: for each split of
+    the page range (``_cuda.split_pages``) a float32 (m, l, acc) per query
+    head over its live tokens (m = -inf, l = 0 for none), then the merge in
+    split order, skipping empty splits; acc / max(l, 1e-30)."""
+    B, H, D = q.shape
+    NP, KVH, PS, _ = kp.shape
+    MAXP = pt.shape[1]
+    G = H // KVH
+    scale = float(1.0 / (D ** 0.5))
+    idx = pt.clamp(0, NP - 1).long()
+    k = kp[idx].movedim(2, 1).reshape(B, KVH, MAXP * PS, D).float()
+    v = vp[idx].movedim(2, 1).reshape(B, KVH, MAXP * PS, D).float()
+    s = torch.einsum("bkgd,bktd->bkgt", q.reshape(B, KVH, G, D).float(),
+                     k) * scale
+    pos = torch.arange(MAXP * PS)[None]
+    live = (pos < lens[:, None]) & torch.repeat_interleave(
+        (pt >= 0) & (pt < NP), PS, dim=1)
+    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    neg = torch.full((B, KVH, G), float("-inf"))
+    parts = []
+    for p0, p1 in _cuda.split_pages(MAXP, splits):
+        ss = s[..., p0 * PS:p1 * PS]
+        m = ss.amax(-1) if p1 > p0 else neg
+        p = torch.exp(ss - torch.where(m == float("-inf"), 0.0, m)[..., None])
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bkgt,bktd->bkgd", p,
+                                   v[:, :, p0 * PS:p1 * PS])))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = torch.zeros_like(M)
+    acc = torch.zeros(B, KVH, G, D)
+    for m, l, a in parts:
+        w = torch.where(m == float("-inf"), 0.0, torch.exp(m - torch.where(
+            M == float("-inf"), 0.0, M)))
+        L = L + w * l
+        acc = acc + w[..., None] * a
+    return (acc / L.clamp(min=1e-30)[..., None]).reshape(B, H, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+@pytest.mark.parametrize("splits", [1, 2, 3, 6])     # 6 = MAXP + 1
+def test_split_combine_matches_jax(jdt, tdt, tol, splits):
+    """Split and merge against the JAX kernel (interpret mode) and the JAX
+    plain version: a length of 0 (zeros, as the JAX kernel; the plain
+    version's softmax over nothing is NaN), 1, full, and lengths on,
+    one before and one past each split boundary."""
+    PS, MAXP = 8, 5
+    edges = [e * PS for _, e in _cuda.split_pages(MAXP, splits)
+             if 0 < e < MAXP]
+    lens = [0, 1, MAXP * PS] + [x for e in edges for x in (e - 1, e, e + 1)]
+    rng = np.random.RandomState(splits)
+    (jq, jk, jv, jpt, jl), targs = both(
+        make_case(rng, len(lens), 8, 2, 16, PS, MAXP, lens=lens), jdt, tdt)
+    got = split_combine(*targs, splits)
+    assert got.dtype == tdt
+    live = np.asarray(lens) > 0
+    assert err(jops.paged_attention(jq, jk, jv, jpt, jl), got) < tol
+    assert not got[~live].any()
+    want = np.asarray(jax_ref(jq, jk, jv, jpt, jl), np.float32)[live]
+    assert err(want, got[live]) < tol
+
+
+def test_split_combine_unmapped_page_at_a_split_boundary():
+    """An unmapped page where a split begins: that split's first page adds
+    nothing, as in the JAX kernel."""
+    PS, MAXP = 8, 6
+    rng = np.random.RandomState(3)
+    q, kp, vp, pt, lens = make_case(rng, 3, 4, 1, 16, PS, MAXP,
+                                    lens=[MAXP * PS, 4 * PS - 1, 2 * PS + 1])
+    pt[:, 2] = -1                       # splits of 2 pages: page 2 opens #2
+    (jq, jk, jv, jpt, jl), targs = both((q, kp, vp, pt, lens), jnp.float32,
+                                        torch.float32)
+    got = split_combine(*targs, 3)
+    assert err(jops.paged_attention(jq, jk, jv, jpt, jl), got) < 2e-5
+    assert err(jax_ref(jq, jk, jv, jpt, jl), got) < 2e-5
+
+
+@pytest.mark.parametrize("seq_heads", [1, 4, 16, 128, 1000])
+@pytest.mark.parametrize("max_pages", [1, 2, 9, 132, 513])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_split_count_covers_every_page_once(seq_heads, max_pages, sms):
+    for resident in (1, 2, 3):   # blocks per SM (bf16: 1 at D 256, 2 at 128)
+        splits = _cuda.paged_attn_splits(seq_heads, max_pages, sms, resident)
+        assert 1 <= splits <= max_pages
+        ranges = _cuda.split_pages(max_pages, splits)
+        assert all(b < e for b, e in ranges)          # no split without a page
+        assert [p for b, e in ranges for p in range(b, e)] == list(
+            range(max_pages))
+        want = resident * sms // seq_heads
+        assert 2 * splits >= min(max_pages, want)     # near one wave
+        assert seq_heads * splits <= max(seq_heads, resident * sms)
+
+
+def test_split_count_at_serving_sizes():
+    """Yi-6B (4 kv heads, 132 pages) on 132 SMs, two bf16 blocks resident
+    per SM at D 128: 2 splits at batch 32 (256 blocks), 15 at the
+    launcher's default batch of 4 (240 blocks); one block per SM (D 256)
+    halves the wave."""
+    assert _cuda.paged_attn_splits(32 * 4, 132, 132, 2) == 2
+    assert _cuda.paged_attn_splits(4 * 4, 132, 132, 2) == 15
+    assert _cuda.paged_attn_splits(32 * 4, 132, 132, 1) == 1
+    assert _cuda.paged_attn_splits(4 * 4, 132, 132, 1) == 8
