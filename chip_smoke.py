@@ -12,9 +12,11 @@ Phases, in order:
    (2**23 buckets: 16 B keys and values, 4-slot buckets, 3 SBuckets, 10 %
    extension pool, no stash) loaded with 50,331,648 YCSB records (load
    factor 0.6); the probe and mutate kernels held against their plain
-   PyTorch versions on it (exact integer equality) and on synthetic rows,
-   and timed beside their bound; the card's store held against the CPU
-   store on a small input.
+   PyTorch versions on it (exact integer equality) at B 4,224, 65,531,
+   65,536 and 1,048,576 and on synthetic rows, and timed beside their
+   bound at the serving path's lookup batch (4,224), the main path's batch
+   (65,536) and the store's read-back batch (1,048,576); the card's store
+   held against the CPU store on a small input.
 3. The store's request path, with every kernel's launch count set to 0
    just before: ``make_store("continuity", ...)`` on ``cuda`` bulk-loads
    the same records in 48 insert batches, reads every acknowledged key
@@ -78,6 +80,7 @@ N_RECORDS = 50_331_648         # load factor 0.6
 LOAD_BATCH = 2 ** 20           # 48 insert batches
 READ_BATCH = 2 ** 20
 QUERY_B = 65_536               # kernel comparison and YCSB batch size
+SMALL_B = 4_224                # the serving path's page-table lookups
 ODD_B = 65_531
 YCSB_BATCHES = 4
 SEED = 0
@@ -251,7 +254,7 @@ def _synthetic_cases(torch):
                 i32(rng.randint(0, 4, size=B))))
 
 
-def kernel_phase(torch, api, ch, ycsb, K, probe, mutate, keys, vals,
+def kernel_phase(torch, api, ch, ycsb, K, _cuda, probe, mutate, keys, vals,
                  card) -> list:
     """Phase 2 on its own full-size table; returns the kernels' rows."""
     from repro_torch.kernels.mutate_ref import mutate_ref
@@ -266,10 +269,10 @@ def kernel_phase(torch, api, ch, ycsb, K, probe, mutate, keys, vals,
     rng = np.random.RandomState(SEED + 2)
     prio = torch.as_tensor(K.priority_table(cfg)).cuda()
 
-    def operands():
-        half = QUERY_B // 2
+    def operands(B=QUERY_B):
+        half = B // 2
         q = np.concatenate([ycsb.make_key(rng.choice(N_RECORDS, half)),
-                            ycsb.negative_keys(rng, N_RECORDS, half)])
+                            ycsb.negative_keys(rng, N_RECORDS, B - half)])
         q = torch.from_numpy(q.view(np.int32)).cuda()
         pair, parity = ch.locate(cfg, q)
         return (K.table_rows(table), table.indicator[:, None], prio,
@@ -301,46 +304,69 @@ def kernel_phase(torch, api, ch, ycsb, K, probe, mutate, keys, vals,
     compare(f"full-size table, B={ODD_B}",
             full[:3] + tuple(x[:ODD_B] for x in full[3:6]) + full[6:7]
             + (full[7][:ODD_B],))
+    for B in (SMALL_B, READ_BATCH):
+        compare(f"full-size table, B={B}", operands(B))
     for case, o in _synthetic_cases(torch):
         compare(case, o)
     print(f"phase 2: probe (fp off and on) and mutate equal their plain "
-          f"versions on the full-size table (B={QUERY_B} and {ODD_B}) and "
-          f"on synthetic empty/full/bit-31 rows; max_abs_err {err}",
-          flush=True)
+          f"versions on the full-size table (B={SMALL_B}, {ODD_B}, {QUERY_B}"
+          f" and {READ_BATCH}) and on synthetic empty/full/bit-31 rows; "
+          f"max_abs_err {err}", flush=True)
+    index = torch.cuda.current_device()
+    res = [_cuda.probe_resident_blocks(index, _cuda.MODE_PROBE_FP, S, d)
+           for d in (False, True)]
+    print(f"phase 2: segment probe at S={S}: the tiled kernel holds {res[0]} "
+          f"blocks of {_cuda.PROBE_WARPS} warps per SM "
+          f"({_cuda.probe_smem_bytes(S)} B of dynamic shared memory per "
+          f"block), the one-warp-per-query kernel {res[1]}; grid (blocks, "
+          f"tile) at B=" + ", ".join(
+              f"{B}: {_cuda.probe_grid(B, _cuda.sm_count(index), *res)}"
+              for B in (SMALL_B, QUERY_B, READ_BATCH)), flush=True)
 
-    # times at the main path's batch, beside the bound by bytes: per query
-    # one row of S 16-byte keys (counted once per distinct pair), the
+    # times at the serving path's lookup batch, the main path's batch and
+    # the store's read-back batch, each beside the bound by bytes: per
+    # query one row of S 16-byte keys (counted once per distinct pair), the
     # pair's indicator and fp words, its key, pair, parity, fingerprint,
-    # and the outputs
-    batches = [operands() for _ in range(8)]
-    uniq = float(np.mean([int(torch.unique(o[3]).numel()) for o in batches]))
+    # and the outputs; at the main path's batch also the plain version
     rows = []
     specs = [("probe_segments", "src/repro/kernels/probe.py:130",
               runs["probe_fp"], max(err["probe"], err["probe_fp"]), 8),
              ("mutate_segments", "src/repro/kernels/mutate.py:93",
               runs["mutate"], err["mutate"], 12)]
-    for name, replaces, (kern, plain), e, out_bytes in specs:
-        ms = _device_ms(torch, kern, batches, 200, KERNEL_SLEEP)
-        plain_ms = _device_ms(torch, plain, batches, 20, PLAIN_SLEEP)
-        call_ms = _event_ms(torch, kern, batches, 200)
-        nbytes = uniq * (S * 16 + 4 + 8) + QUERY_B * (16 + 4 + 4 + 4
-                                                      + out_bytes)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/segment_probe.cu",
-            "replaces": replaces, "max_abs_err": e, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": None})
-        print(f"{name}: {ms * 1e3:.2f} us on the device per launch at "
-              f"B={QUERY_B} (bound {bound_ms * 1e3:.2f} us from "
-              f"{nbytes / 1e6:.2f} MB; plain version {plain_ms * 1e3:.2f} "
-              f"us); {call_ms * 1e3:.2f} us per call back to back from "
-              f"Python [{card}]", flush=True)
-    ms_nofp = _device_ms(torch, runs["probe"][0], batches, 200,
-                         KERNEL_SLEEP)
-    print(f"probe_segments without the fp filter: {ms_nofp * 1e3:.2f} us on "
-          f"the device per launch at B={QUERY_B} [{card}]", flush=True)
+    for B in (SMALL_B, QUERY_B, READ_BATCH):
+        batches = [operands(B) for _ in range(4 if B > QUERY_B else 8)]
+        uniq = float(np.mean([int(torch.unique(o[3]).numel())
+                              for o in batches]))
+        for name, replaces, (kern, plain), e, out_bytes in specs:
+            ms = _device_ms(torch, kern, batches, 100 if B > QUERY_B else 200,
+                            KERNEL_SLEEP)
+            nbytes = uniq * (S * 16 + 4 + 8) + B * (16 + 4 + 4 + 4
+                                                    + out_bytes)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            line = (f"{name}: {ms * 1e3:.2f} us on the device per launch at "
+                    f"B={B} (bound {bound_ms * 1e3:.2f} us from "
+                    f"{nbytes / 1e6:.2f} MB, {bound_ms / ms:.3f} of it")
+            if B == QUERY_B:
+                plain_ms = _device_ms(torch, plain, batches, 20, PLAIN_SLEEP)
+                call_ms = _event_ms(torch, kern, batches, 200)
+                rows.append({
+                    "name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/segment_probe.cu",
+                    "replaces": replaces, "max_abs_err": e, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": None})
+                line += (f"; plain version {plain_ms * 1e3:.2f} us); "
+                         f"{call_ms * 1e3:.2f} us per call back to back "
+                         f"from Python")
+            else:
+                line += ")"
+            print(f"{line} [{card}]", flush=True)
+        if B == QUERY_B:
+            ms_nofp = _device_ms(torch, runs["probe"][0], batches, 200,
+                                 KERNEL_SLEEP)
+            print(f"probe_segments without the fp filter: "
+                  f"{ms_nofp * 1e3:.2f} us on the device per launch at "
+                  f"B={QUERY_B} [{card}]", flush=True)
     del table, batches, full
     torch.cuda.empty_cache()
     _small_input_check(torch, api, ycsb)
@@ -1107,8 +1133,8 @@ def main() -> int:
     keys, vals = _records(torch, ycsb)
 
     # -- phase 2: store kernels against their plain versions -------------
-    rows = kernel_phase(torch, api, ch, ycsb, K, probe, mutate, keys, vals,
-                        card)
+    rows = kernel_phase(torch, api, ch, ycsb, K, _cuda, probe, mutate, keys,
+                        vals, card)
 
     # -- phase 3: the store's request path, its launches counted ---------
     torch.cuda.reset_peak_memory_stats()

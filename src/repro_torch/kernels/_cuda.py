@@ -101,7 +101,8 @@ def segment_probe_lib() -> ctypes.CDLL:
     """The segment-probe library, built and loaded once per process."""
     return _library("segment_probe.cu", "segment_probe_launch",
                     [ctypes.c_int] + [ctypes.c_void_p] * 8
-                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+                    + [ctypes.c_int, ctypes.c_void_p])
 
 
 def paged_attn_lib() -> ctypes.CDLL:
@@ -112,6 +113,25 @@ def paged_attn_lib() -> ctypes.CDLL:
 
 
 MODE_PROBE, MODE_PROBE_FP, MODE_MUTATE = 0, 1, 2
+PROBE_TILE = 32       # most queries per warp tile (csrc/segment_probe.cu)
+PROBE_WARPS = 8       # warps per block (kWarps there)
+
+
+def probe_grid(B: int, sms: int, resident: int, direct_resident: int) -> tuple:
+    """``(blocks, tile)`` of the segment-probe launch for ``B`` queries on
+    ``sms`` SMs, of which each holds ``resident`` blocks of the tiled kernel
+    and ``direct_resident`` of the one-warp-per-query kernel.  A batch that
+    one wave of one-warp-per-query blocks covers takes that kernel (tile
+    0): its chain of memory trips is the shortest.  A larger one takes the
+    smallest power-of-two tile (at most ``PROBE_TILE`` queries per warp)
+    that one wave of tiled blocks covers, so each warp issues few row
+    copies, and no more blocks than the tiles need."""
+    if B <= direct_resident * sms * PROBE_WARPS:
+        return max(1, -(-B // PROBE_WARPS)), 0
+    per_warp = -(-B // (resident * sms * PROBE_WARPS))
+    tile = min(PROBE_TILE, 1 << (per_warp - 1).bit_length())
+    tiles = -(-B // tile)
+    return max(1, min(resident * sms, -(-tiles // PROBE_WARPS))), tile
 
 
 def _need(t: torch.Tensor, name: str, shape, device) -> None:
@@ -126,11 +146,43 @@ def _need(t: torch.Tensor, name: str, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
+def probe_resident_blocks(index: int, mode: int, S: int, direct: bool) -> int:
+    """Segment-probe blocks that one SM of CUDA device ``index`` holds at
+    once for ``mode`` and ``S`` slots, of the tiled kernel or (``direct``)
+    the one-warp-per-query kernel: the runtime's occupancy of the
+    instantiation the launch picks, with its shared memory (asked once per
+    process; a host call, no device sync)."""
+    fn = segment_probe_lib().segment_probe_resident_blocks
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = fn(mode, S, 0 if direct else PROBE_TILE, ctypes.byref(blocks))
+    if err or blocks.value < 1:
+        raise RuntimeError(f"segment_probe_resident_blocks failed: cudaError "
+                           f"{err}, {blocks.value} blocks")
+    return blocks.value
+
+
+def probe_smem_bytes(S: int) -> int:
+    """Dynamic shared memory of one block of the tiled segment-probe kernel
+    (the one-warp-per-query kernel takes none)."""
+    fn = segment_probe_lib().segment_probe_smem_bytes
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(S)
+
+
 def launch_segment_probe(mode: int, rows, indicators, fps, prio, pairs,
-                         parity, qkeys, qfp):
+                         parity, qkeys, qfp, *, grid=None):
     """Check the operands and launch one segment-probe kernel on the
     current stream.  Returns ``(match, empty, flip)`` (flip None unless
-    mutate).  Raises on any operand it does not take or a failed launch."""
+    mutate).  ``grid`` None lets the host pick ``(blocks, tile)``
+    (``probe_grid``; tile 0 is the one-warp-per-query kernel); tests pass
+    another grid of the same kind, to run the tiled kernel on a small
+    batch.  Reads nothing back from the device.  Raises on any operand it
+    does not take or a failed launch."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -139,25 +191,40 @@ def launch_segment_probe(mode: int, rows, indicators, fps, prio, pairs,
     P, S = rows.shape[0], rows.shape[1] // 4
     B = qkeys.shape[0]
     if not 1 <= S <= 32:
-        raise ValueError(f"one warp per query takes S <= 32 slots, got {S}")
+        raise ValueError(f"two fp words carry the fields of at most 32 "
+                         f"slots, got S = {S}")
     _need(rows, "rows", (P, 4 * S), dev)
     _need(indicators, "indicators", (P, 1), dev)
     _need(prio, "prio", (2, S), dev)
     _need(pairs, "pairs", (B,), dev)
     _need(parity, "parity", (B,), dev)
     _need(qkeys, "qkeys", (B, 4), dev)
+    aligned = [("rows", rows, 16), ("qkeys", qkeys, 16)]
     if mode != MODE_PROBE:
         _need(fps, "fps", (P, 2), dev)
         _need(qfp, "qfp", (B,), dev)
-    for name, t in (("rows", rows), ("qkeys", qkeys)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (uint4 loads)")
+        aligned.append(("fps", fps, 8))
+    for name, t, align in aligned:
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned (the "
+                             f"kernels read it {align} bytes at a time)")
+    if grid is not None and not (
+            grid[0] >= 1 and 0 <= grid[1] <= PROBE_TILE
+            and grid[1] & (grid[1] - 1) == 0
+            and (grid[1] or grid[0] * PROBE_WARPS >= B)):
+        raise ValueError(f"grid must be (blocks >= 1, a power-of-two tile up "
+                         f"to {PROBE_TILE}) or (blocks of {PROBE_WARPS} warps, "
+                         f"one per query, 0), got {grid}")
     match = torch.empty(B, dtype=torch.int32, device=dev)
     empty = torch.empty(B, dtype=torch.int32, device=dev)
     flip = (torch.empty(B, dtype=torch.int32, device=dev)
             if mode == MODE_MUTATE else None)
     if B == 0:
         return match, empty, flip
+    index = dev.index
+    blocks, tile = grid or probe_grid(
+        B, sm_count(index), probe_resident_blocks(index, mode, S, False),
+        probe_resident_blocks(index, mode, S, True))
     lib = segment_probe_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -166,8 +233,8 @@ def launch_segment_probe(mode: int, rows, indicators, fps, prio, pairs,
             fps.data_ptr() if mode != MODE_PROBE else None,
             prio.data_ptr(), pairs.data_ptr(), parity.data_ptr(),
             qkeys.data_ptr(), qfp.data_ptr() if mode != MODE_PROBE else None,
-            B, P, S, match.data_ptr(), empty.data_ptr(),
-            flip.data_ptr() if flip is not None else None, stream)
+            B, P, S, tile, match.data_ptr(), empty.data_ptr(),
+            flip.data_ptr() if flip is not None else None, blocks, stream)
     if err:
         raise RuntimeError(f"segment_probe_launch failed: cudaError {err}")
     return match, empty, flip

@@ -9,7 +9,9 @@ VICTIM slot (first empty probe candidate, the bit update sets) and
 fingerprint filter is always on.
 
 Bound: device-memory bytes, as the probe (about 372 B per query at
-S = 20).  Design: the probe kernel's, one warp per query; see the source.
+S = 20).  Design: the probe kernel's (one warp per query for a batch
+that one wave covers, else persistent warps with tiles of up to 32
+queries, one TMA row copy per query); see the source.
 
 On a CPU tensor the wrapper runs the plain version (``mutate_ref``); on a
 CUDA tensor it launches the kernel or raises.

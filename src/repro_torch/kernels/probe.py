@@ -6,10 +6,13 @@ Replaces the TPU kernel ``src/repro/kernels/probe.py`` ``probe_segments``
 
 Bound: device-memory bytes — per query one random 16*S-byte key row plus
 the pair's indicator and fp words, its key, pair, parity and fingerprint,
-and 8 bytes out (about 368 B at S = 20).  Design: one warp per query, one
-16-byte load per slot lane (the row coalesces into a few 128-byte lines),
-rank argmins by two warp-wide min reductions, 8 warps per block; see the
-source for the details.
+and 8 bytes out (about 368 B at S = 20).  Design: a batch that one wave
+of one-warp-per-query blocks covers takes one warp per query (lanes over
+the slots, the shortest chain of memory trips); a larger one takes one
+wave of persistent warps, each walking tiles of up to 32 queries (one per
+lane), each lane copying its query's row with one TMA bulk copy into
+shared memory and resolving the rank argmins from bit masks there; see
+the source for the details.
 
 On a CPU tensor the wrapper runs the plain version (``probe_ref``); on a
 CUDA tensor it launches the kernel or raises.

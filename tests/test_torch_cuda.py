@@ -111,6 +111,218 @@ def test_wrappers_reject_operands_they_do_not_take(dev):
         probe.probe_segments(rows, ind.cpu(), prio, pairs, par, q)
 
 
+def tie_case(seed, P, S, B, dev, pairs=None, shuffle=False):
+    """``probe_case`` with ranks repeated three slots at a time (ties go
+    to the lowest slot) and the last fifth of slots no candidate, keys
+    drawn from two words so that rows repeat the query's key in several
+    slots, and fp words equal to the planted field, so matches tie too.
+    ``shuffle`` permutes each parity's candidate ranks (no probe order
+    follows the slots)."""
+    rng = np.random.RandomState(seed)
+    rows, ind, _, pr, par, q, fps, qfp = probe_case(seed, P, S, B, None, dev)
+    rows = (rows & 1).contiguous()
+    q = (q & 1).contiguous()
+    prio = np.full((2, S), BIG, np.int32)
+    live = max(1, S - S // 5)
+    prio[0, :live] = np.arange(live) // 3
+    prio[1, S - live:] = (np.arange(live) // 3)[::-1]
+    if shuffle:
+        prio[0, :live] = rng.permutation(prio[0, :live])
+        prio[1, S - live:] = rng.permutation(live)
+    qfp = torch.from_numpy(rng.randint(0, 2, size=B).astype(np.int32)).to(dev)
+    fps = words(np.full((P, 2), 0x55555555, np.uint64) *
+                rng.randint(0, 2, size=(P, 1)).astype(np.uint64), dev)
+    if pairs is not None:
+        pr = torch.from_numpy(np.asarray(pairs, np.int32)).to(dev)
+    return (rows, ind, torch.from_numpy(prio).to(dev), pr, par, q, fps, qfp)
+
+
+def kernel_modes(args, grid=None):
+    """The kernel's outputs in its three modes on ``args`` (probe_case
+    order): probe, probe with the fp filter, mutate."""
+    rows, ind, prio, pairs, par, q, fps, qfp = args
+    return [_cuda.launch_segment_probe(mode, rows, ind, fps, prio, pairs, par,
+                                       q, qfp, grid=grid)[:n]
+            for mode, n in ((_cuda.MODE_PROBE, 2), (_cuda.MODE_PROBE_FP, 2),
+                            (_cuda.MODE_MUTATE, 3))]
+
+
+def plain_modes(args):
+    """The plain versions' outputs, in ``kernel_modes``' order."""
+    rows, ind, prio, pairs, par, q, fps, qfp = args
+    return [probe_ref(rows, ind, prio, pairs, par, q),
+            probe_ref(rows, ind, prio, pairs, par, q, fps, qfp),
+            mutate_ref(rows, ind, fps, prio, pairs, par, q, qfp)]
+
+
+def run_modes(args, grid=None):
+    """(kernel, plain) outputs of each mode on ``args``."""
+    return list(zip(kernel_modes(args, grid), plain_modes(args)))
+
+
+def full_wave(dev, S):
+    """Queries that the tiled kernel holds in flight at once: a tile of 32
+    on every warp of one wave."""
+    resident = _cuda.probe_resident_blocks(dev.index or 0,
+                                           _cuda.MODE_PROBE_FP, S, False)
+    return (resident * _cuda.sm_count(dev.index or 0) * _cuda.PROBE_WARPS
+            * _cuda.PROBE_TILE)
+
+
+@pytest.mark.parametrize("S", [1, 16, 20, 30, 32])
+@pytest.mark.parametrize("B", ["1", "31", "32", "33", "wave-1", "wave",
+                               "wave+1", "65531"])
+@pytest.mark.parametrize("tiled", [False, True], ids=["host", "tiled"])
+def test_segment_kernels_exact_at_tile_edges(dev, S, B, tiled):
+    """All three modes against the plain versions, integer-exact, at batch
+    sizes on the edges of a tile and of one full wave of tiles, with tied
+    ranks and keys repeated in a row: on the host's grid, and on tiles of
+    32 whatever the batch (the host gives a small batch a warp per
+    query)."""
+    if B.startswith("wave"):
+        n = full_wave(dev, S) + int(B[4:] or 0)
+    else:
+        n = int(B)
+    grid = None
+    if tiled:
+        resident = _cuda.probe_resident_blocks(dev.index or 0,
+                                               _cuda.MODE_PROBE_FP, S, False)
+        tiles = -(-n // _cuda.PROBE_TILE)
+        grid = (min(resident * _cuda.sm_count(dev.index or 0),
+                    -(-tiles // _cuda.PROBE_WARPS)), _cuda.PROBE_TILE)
+    for got, want in run_modes(tie_case(S * 7 + len(B), 301, S, n, dev),
+                               grid):
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("S,B,grid", [(20, 4099, (1, 32)), (32, 9000, (1, 32)),
+                                      (1, 777, (2, 32)), (20, 65531, (3, 32)),
+                                      (20, 4099, (2, 8)), (30, 1000, (1, 1)),
+                                      (16, 3000, (5, 16)), (20, 4099, (513, 0)),
+                                      (32, 31, (4, 0)), (1, 100, (20, 0))])
+def test_segment_kernels_exact_on_small_grids(dev, S, B, grid):
+    """A grid of a few blocks walks many tiles per warp, so each warp's
+    stage and its mbarrier are reused many times; power-of-two tiles of 1
+    to 32 queries, as the host picks them, and the one-warp-per-query
+    kernel (tile 0) with spare warps."""
+    for got, want in run_modes(tie_case(B + S, 257, S, B, dev), grid):
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("S", [20, 32])
+def test_segment_kernels_exact_over_many_tiles_per_warp(dev, S):
+    """On the host's grid, a batch of four full waves and a bit: tiles of
+    32, each warp walking four or five of them through its one stage and
+    mbarrier, as the store's read-back batch does."""
+    n = 4 * full_wave(dev, S) + 3
+    index = dev.index or 0
+    blocks, tile = _cuda.probe_grid(
+        n, _cuda.sm_count(index),
+        *(_cuda.probe_resident_blocks(index, _cuda.MODE_PROBE_FP, S, d)
+          for d in (False, True)))
+    assert tile == _cuda.PROBE_TILE
+    assert -(-n // tile) > 4 * blocks * _cuda.PROBE_WARPS
+    for got, want in run_modes(tie_case(S + 3, 4099, S, n, dev)):
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("S", [1, 16, 20, 32])
+@pytest.mark.parametrize("grid", [None, (4, 32)])
+def test_segment_kernels_exact_with_unordered_ranks(dev, S, grid):
+    """Ranks that follow no slot order: the kernel keeps the running
+    minimum of (rank, slot) instead of taking the first slot in order."""
+    args = tie_case(S + 5, 199, S, 7777, dev, shuffle=True)
+    for got, want in run_modes(args, grid):
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("S", [16, 20, 32])
+def test_segment_kernels_pairs_out_of_range(dev, S):
+    """Pairs -1, P and far outside the table read nothing and report -1 /
+    -1 with flip 0; the other queries of their tiles are unaffected."""
+    P, B = 64, 1000
+    rng = np.random.RandomState(S)
+    pairs = rng.randint(0, P, size=B)
+    bad = rng.rand(B) < 0.3
+    pairs[bad] = rng.choice([-1, P, 2 ** 31 - 1, -2 ** 31], size=bad.sum())
+    pairs[32:64] = -1                       # one whole tile out of range
+    args = tie_case(S, P, S, B, dev, pairs=pairs)
+    safe = list(args)
+    safe[3] = torch.where(args[3].cpu().ge(0) & args[3].cpu().lt(P),
+                          args[3].cpu(), 0).to(dev)
+    bad = torch.from_numpy(bad | (np.arange(B) // 32 == 1)).to(dev)
+    for got, want in zip(kernel_modes(args), plain_modes(safe)):
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert torch.equal(g[bad], torch.full_like(g[bad],
+                                                       0 if i == 2 else -1))
+            assert torch.equal(g[~bad], w[~bad])
+
+
+def test_segment_kernels_tile_of_one_pair(dev):
+    """Every query of a tile on one pair (32 copies of one row in
+    flight), and one pair for the whole batch."""
+    P, S, B = 97, 20, 32 * 40 + 5
+    rng = np.random.RandomState(3)
+    for pairs in (np.repeat(rng.randint(0, P, size=41), 32)[:B],
+                  np.full(B, 7)):
+        args = tie_case(11, P, S, B, dev, pairs=pairs)
+        for got, want in run_modes(args):
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_segment_probe_grid_fills_one_wave(dev):
+    """The host's grid comes from the occupancy of the instantiation
+    launched: at least one block per SM, at most one wave, no more warps
+    than tiles."""
+    index = dev.index or 0
+    sms = _cuda.sm_count(index)
+    for mode in (_cuda.MODE_PROBE, _cuda.MODE_PROBE_FP, _cuda.MODE_MUTATE):
+        for S in (1, 20, 32):
+            resident = _cuda.probe_resident_blocks(index, mode, S, False)
+            direct = _cuda.probe_resident_blocks(index, mode, S, True)
+            assert resident >= 1 and direct >= 1
+            for B in (1, 4224, 65536, 2 ** 20):
+                blocks, tile = _cuda.probe_grid(B, sms, resident, direct)
+                assert blocks <= (resident if tile else direct) * sms
+                assert (blocks - 1) * _cuda.PROBE_WARPS * (tile or 1) < B
+    # serving's lookup batch takes a warp per query; the store's batches
+    # take tiles
+    S = 20
+    res = [_cuda.probe_resident_blocks(index, 1, S, d) for d in (False, True)]
+    assert _cuda.probe_grid(4224, sms, *res)[1] == 0
+    assert _cuda.probe_grid(65536, sms, *res)[1] == 32
+
+
+@pytest.mark.parametrize("B", [4224, 65536])   # one warp per query; tiles
+def test_segment_kernels_make_no_host_sync(dev, B):
+    """The probe and mutate wrappers read nothing back from the device."""
+    args = probe_case(5, 4096, 20, B, None, dev)
+    rows, ind, prio, pairs, par, q, fps, qfp = args
+    calls = (lambda: probe.probe_segments(rows, ind, prio, pairs, par, q),
+             lambda: probe.probe_segments(*args[:6], fps, qfp),
+             lambda: mutate.mutate_segments(rows, ind, fps, prio, pairs, par,
+                                            q, qfp))
+    for call in calls:                 # build and load outside the check
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):    # the check is live
+            pairs.max().item()
+        outs = [call() for call in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    want = probe_ref(rows, ind, prio, pairs, par, q)
+    assert all(torch.equal(g, w) for g, w in zip(outs[0], want))
+
+
 def test_store_on_card_matches_store_on_cpu(dev):
     """The CUDA main path (kernel policy) leaves byte-identical tables and
     results to the CPU path (plain versions), stash tier included."""

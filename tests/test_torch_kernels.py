@@ -19,6 +19,7 @@ from repro.kernels.mutate_ref import mutate_ref as jax_mutate_ref
 from repro.kernels.probe import probe_segments as jax_probe_segments
 from repro.kernels.probe_ref import probe_ref as jax_probe_ref
 from repro_torch.core import hashfn as th
+from repro_torch.kernels import _cuda
 from repro_torch.kernels import mutate as tmutate
 from repro_torch.kernels import probe as tprobe
 from repro_torch.kernels.mutate_ref import mutate_ref
@@ -177,3 +178,56 @@ def test_wrappers_run_plain_version_on_cpu_without_counting():
     assert tmutate.mutate_segments.launches == n_mut
     with pytest.raises(ValueError, match="fps and qfp"):
         tprobe.probe_segments(*args, words(fps))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's grid and tile walk (host side)
+# ---------------------------------------------------------------------------
+
+def probe_walk(B, blocks, tile):
+    """The queries each warp of the segment-probe grid takes, as tiles, in
+    the order the CUDA kernels walk them (``csrc/segment_probe.cu``): warp
+    ``w`` takes tiles ``w, w + warps of the grid, ...``; tile ``t`` holds
+    queries ``[t * size, (t + 1) * size)`` cut at ``B``, ``size`` being
+    ``tile``, or 1 for tile 0 (one warp per query)."""
+    tiles = -(-B // (tile or 1))
+    warps = blocks * _cuda.PROBE_WARPS
+    return [list(range(w, tiles, warps)) for w in range(warps)]
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 4224, 8449, 65536, 1048576])
+@pytest.mark.parametrize("resident", [1, 2, 3])
+def test_probe_grid_covers_every_query_once_in_one_wave(B, resident):
+    """The host's grid is one wave at most, has work for every warp but
+    the last block's, and its walk covers every query exactly once."""
+    sms, warps, direct = 132, _cuda.PROBE_WARPS, 8
+    blocks, tile = _cuda.probe_grid(B, sms, resident, direct)
+    size = tile or 1
+    assert 1 <= blocks <= (resident if tile else direct) * sms
+    assert 0 <= tile <= _cuda.PROBE_TILE and tile & (tile - 1) == 0
+    walk = probe_walk(B, blocks, tile)
+    assert len(walk) == blocks * warps
+    assert all(walk[w] for w in range((blocks - 1) * warps))
+    if not tile:
+        assert all(len(w) <= 1 for w in walk)   # one query per warp
+    seen = np.zeros(B, np.int64)
+    for tiles in walk:
+        for t in tiles:
+            seen[t * size:(t + 1) * size] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("B,want", [
+    (1, (1, 0)),                     # one query, one warp
+    (4224, (528, 0)),                # serving's batch: a warp per query
+    (8448, (1056, 0)),               # the most one wave of them covers
+    (8449, (133, 8)),                # then tiles, small enough to spread
+    (16897, (133, 16)),
+    (65536, (256, 32)),              # a full tile for (nearly) every warp
+    (1048576, (264, 32)),            # the store's read-back: one wave
+])
+def test_probe_grid_at_the_main_paths_sizes(B, want):
+    """A batch that one wave of one-warp-per-query blocks covers takes
+    that kernel; a larger one tiles, small tiles on every warp of the wave
+    first, tiles of 32 on one wave for a large batch."""
+    assert _cuda.probe_grid(B, 132, 2, 8) == want
