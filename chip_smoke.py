@@ -24,6 +24,26 @@ Phases, in order:
    distinct-key update and delete batch (paper Table I: 2 / 2 / 1 PM
    writes per op), and compares the kernel lookup policy with the gather
    policy.  Its tables and records are freed afterwards.
+3b. The serial-walk kernel (level and P-FaRM-KV writes) against its plain
+   version, exact in every mode (insert / update / delete) on small tables
+   at high load with masks and duplicates, and on crafted states that take
+   level's move and logged paths and pfarm's displacement, chain and full
+   pool.
+3c. The baselines at the continuity cell's size, the serial walk's launches
+   counted from 0: ``make_store("level" | "pfarm", table_slots=83,886,080)``
+   loads the same records, reads every acknowledged key back, looks up
+   absent keys, runs YCSB-A and a distinct-key update and delete batch;
+   Table I of all three schemes (continuity 2 / 2 / 1, pfarm 5 / 5 / 5,
+   level 2 / 2-4 / 1), reads per lookup from the verb plans and each
+   scheme's rates.  Uncounted, on clones of each loaded table: every mode
+   of the serial walk against its plain version on the card's tensors and
+   timed beside its bound.
+3d. The end-to-end simulator, launches counted from 0: ``run_ycsb`` on the
+   card equals the CPU run key for key for continuity, level and pfarm x
+   A-F at 800 records / 1,000 ops / batches of 250 (with the orderings of
+   ``tests/test_rdma.py``), then the same cells at 1,048,576 records /
+   262,144 ops / batches of 4,096, their simulated ops/s and latencies
+   (``LinkModel`` outputs) beside each cell's wall time on the card.
 4. Paged attention vs plain: the kernel against ``paged_attn_ref`` in
    float32 (2e-5) and bfloat16 (6e-2) on the shapes of
    ``tests/test_kernels.py``, G = 1 and 8, lengths on page boundaries and
@@ -55,8 +75,9 @@ Phases, in order:
    prefill's, the 63 steps' and the releases'.
 6. The continuous batcher on the same weights answers 48 requests in 32
    slots.
-7. Report: one JSON line of every kernel's launches on the serving path
-   (phase 5), error, times and bound; the card's name and power limit;
+7. Report: one JSON line of every kernel's launches (the TPU kernels' on
+   the serving path, phase 5; the serial walk's on the baselines path,
+   phase 3c), error, times and bound; the card's name and power limit;
    last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises.  Without a CUDA device it exits non-zero and
@@ -104,6 +125,14 @@ KERNEL_SLEEP = 40_000_000      # device-sleep cycles ahead of a timed kernel
 PLAIN_SLEEP = 200_000_000     # ... of a timed plain version (~100 ms)
 LAUNCHER_B = 4                 # launch.serve's default batch
 STEP_REPS = 9                  # timings of the whole decode step
+# phases 3b-3d: the baselines and the end-to-end simulator
+BASE_SLOTS = 83_886_080        # the continuity cell's main slots
+WALK_B = 2_048                 # the serial walk's timed batch
+CHASE_STEPS = 65_536           # dependent loads timed for the walk's floor
+CHASE_COLD_STEPS = 8_192       # ... from a cold L2 (few lines touched twice)
+E2E_SCHEMES = ("continuity", "level", "pfarm")
+E2E_SMALL = dict(num_records=800, num_ops=1000, batch=250)
+E2E_LARGE = dict(num_records=1_048_576, num_ops=262_144, batch=4_096)
 
 
 def _check(cond, what: str) -> None:
@@ -446,7 +475,8 @@ def main_path(torch, api, ch, ycsb, K, keys, vals, card) -> dict:
     _check(hit_all, "every acknowledged insert reads back its value, and "
            "no unacknowledged key is found")
     _check(reads >= N_RECORDS, "reads_per_op >= 1")
-    out.update(lookup_ops_s=N_RECORDS / t_read)
+    out.update(lookup_ops_s=N_RECORDS / t_read,
+               reads_per_lookup=reads / N_RECORDS)
     print(f"read-back: {N_RECORDS} lookups in batches of {READ_BATCH}, every "
           f"acknowledged key found with its value, {t_read:.3f} s = "
           f"{N_RECORDS / t_read:.0f} lookups/s, reads per op "
@@ -535,7 +565,8 @@ def main_path(torch, api, ch, ycsb, K, keys, vals, card) -> dict:
               dres.ledger.pm_per_op())
     _check(table1 == (2.0, 2.0, 1.0),
            "Table I: 2 / 2 / 1 PM writes per committed op")
-    out.update(update_ops_s=QUERY_B / t_u, delete_ops_s=QUERY_B / t_d)
+    out.update(update_ops_s=QUERY_B / t_u, delete_ops_s=QUERY_B / t_d,
+               table1=table1)
     print(f"Table I (PM writes per committed insert/update/delete): "
           f"{table1}; distinct-key batches of {QUERY_B}: update "
           f"{t_u * 1e3:.3f} ms = {QUERY_B / t_u:.0f} updates/s "
@@ -558,6 +589,524 @@ def main_path(torch, api, ch, ycsb, K, keys, vals, card) -> dict:
     print(f"kernel vs gather policy: {QUERY_B} lookups identical "
           f"({int(a.ok.sum())} found)", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the serial-walk kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _walk_tables(scheme):
+    """(module, to_numpy, from_numpy) of a baseline scheme's tables."""
+    from repro_torch import convert
+    from repro_torch.core import level as lv
+    from repro_torch.core import pfarm as pf
+    if scheme == "level":
+        return lv, convert.level_table_to_numpy, convert.level_table_from_numpy
+    return pf, convert.pfarm_table_to_numpy, convert.pfarm_table_from_numpy
+
+
+def _walk_words(torch, ids, vseed, dev):
+    from repro_torch.data import ycsb
+    ids = np.asarray(ids)
+    return (torch.from_numpy(ycsb.make_key(ids).view(np.int32)).to(dev),
+            torch.from_numpy(ycsb.make_value(np.random.RandomState(vseed),
+                                             len(ids)).view(np.int32)).to(dev))
+
+
+def _walk_compare(torch, scheme, op, cfg, pre, ids, active, what):
+    """One batch through the kernel (card) and the plain version (CPU) from
+    the same numpy pre-state; every table field, ok and pm must be equal.
+    Returns (CPU table after, ok, pm, max_abs_err)."""
+    from repro_torch.kernels import scan_walk
+    from repro_torch.kernels.scan_walk_ref import scan_walk_ref
+    _, to_np, from_np = _walk_tables(scheme)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        t = from_np(pre, dev)
+        k, v = _walk_words(torch, ids, 7, dev)
+        a = torch.from_numpy(np.asarray(active, bool)).to(dev)
+        fn = scan_walk_ref if dev == "cpu" else scan_walk.scan_walk
+        ok, pm = fn(scheme, op, cfg, t, k, None if op == "delete" else v, a)
+        outs.append((t, ok.cpu(), pm.cpu()))
+    torch.cuda.synchronize()
+    (tc, okc, pmc), (tg, okg, pmg) = outs
+    want, got = to_np(tc), to_np(tg)
+    err = max([int(np.abs(got[f].astype(np.int64) - want[f].astype(np.int64))
+                   .max(initial=0)) for f in want]
+              + [int((okg - okc).abs().max()), int((pmg - pmc).abs().max())])
+    _check(err == 0 and all(np.array_equal(got[f], want[f]) for f in want)
+           and torch.equal(okg, okc) and torch.equal(pmg, pmc),
+           f"scan_walk equals its plain version ({scheme} {op}, {what})")
+    return tc, okc, pmc, err
+
+
+def walk_phase(torch, card) -> int:
+    """Phase 3b: every mode of the serial walk against its plain version on
+    small tables at high load, and on crafted states that force level's
+    move and logged paths and pfarm's displacement, chain and full pool.
+    Returns the largest integer difference seen (0)."""
+    from repro_torch.core import level as lv
+    from repro_torch.core import pfarm as pf
+    err = 0
+    forced = {}
+    for scheme, cfg, n in (("level", lv.LevelConfig(num_top=1024), 5500),
+                           ("pfarm", pf.PFarmConfig(num_buckets=1024), 4600)):
+        mod, to_np, _ = _walk_tables(scheme)
+        empty = to_np(mod.create(cfg, "cpu"))
+        pre, _, _, e = _walk_compare(torch, scheme, "insert", cfg, empty,
+                                     np.arange(n), np.ones(n, bool),
+                                     f"load to {n} items")
+        pre, err = to_np(pre), max(err, e)
+        rng = np.random.RandomState(5)
+        for op in ("insert", "update", "delete"):
+            ids = (np.arange(n, n + WALK_B) if op == "insert" else
+                   np.where(rng.rand(WALK_B) < 0.85, rng.randint(0, n, WALK_B),
+                            rng.randint(n, 2 * n, WALK_B)))
+            ids[rng.rand(WALK_B) < 0.1] = ids[0]          # duplicates
+            _, ok, pm, e = _walk_compare(
+                torch, scheme, op, cfg, pre, ids, rng.rand(WALK_B) < 0.8,
+                f"B={WALK_B} at high load, masked, duplicates")
+            err = max(err, e)
+            forced[f"{scheme} {op}"] = sorted(set(pm.tolist()))
+    # level: a one-movement insert (5), then a logged (4) and a free (2)
+    # update, on num_top 4 (tests/test_torch_cuda.py builds the same state)
+    cfg = lv.LevelConfig(num_top=4)
+    ids = np.arange(200_000)
+    cand = lv._cand_buckets(cfg, _walk_words(torch, ids[:20_000], 0,
+                                             "cpu")[0]).numpy()
+    inner = ids[:20_000][(cand[:, 0] < 2) & (cand[:, 1] < 2)]
+    first = ids[:20_000][(cand[:, 0] == 0) & (cand[:, 1] == 2)][:1]
+    last = inner[11:][cand[inner[11:], 0] == 0][:1]
+    order = np.concatenate([first, inner[:11], last])
+    t, _, pm, e = _walk_compare(torch, "level", "insert", cfg,
+                                _walk_tables("level")[1](lv.create(cfg, "cpu")),
+                                order, np.ones(13, bool), "crafted move")
+    _check(pm.tolist() == [2] * 12 + [5], "level's move path was taken")
+    _, _, pm2, e2 = _walk_compare(torch, "level", "update", cfg,
+                                  _walk_tables("level")[1](t),
+                                  np.concatenate([order[[12]], first]),
+                                  np.ones(2, bool), "crafted updates")
+    _check(pm2.tolist() == [4, 2], "level's logged and free updates")
+    err = max(err, e, e2)
+    # pfarm: displacement into bucket 6, chains, then a full pool
+    cfg = pf.PFarmConfig(num_buckets=16)
+    home = pf._home(cfg, _walk_words(torch, ids, 0, "cpu")[0]).numpy()
+    ids = np.concatenate([ids[home == 5][:4], ids[home == 0][:61]])
+    empty = _walk_tables("pfarm")[1](pf.create(cfg, "cpu"))
+    t, ok, _, e = _walk_compare(torch, "pfarm", "insert", cfg, empty, ids,
+                                np.ones(len(ids), bool),
+                                "crafted displacement, chain, full pool")
+    t1, _, _, e2 = _walk_compare(torch, "pfarm", "insert", cfg, empty,
+                                 ids[:25], np.ones(25, bool),
+                                 "crafted displacement")
+    _check(torch.equal(t1.keys[6, 0], _walk_words(torch, ids[:1], 0,
+                                                  "cpu")[0][0]),
+           "pfarm displaced an item into bucket 6")
+    _check(int(t.ocount) == cfg.pool_blocks and not bool(ok.all()),
+           "pfarm chained blocks until the pool was full")
+    for op in ("update", "delete"):
+        _, ok, _, e3 = _walk_compare(torch, "pfarm", op, cfg,
+                                     _walk_tables("pfarm")[1](t), ids[::-1],
+                                     np.ones(len(ids), bool), "crafted chain")
+        _check(bool(ok.any()), f"pfarm {op} finds window and chain items")
+        err = max(err, e3)
+    err = max(err, e, e2)
+    print(f"phase 3b: scan_walk equals its plain version in every mode "
+          f"(level and pfarm insert/update/delete at B={WALK_B} on tables "
+          f"at high load, masked, with duplicates; PM writes per op seen "
+          f"{forced}); crafted states take level's move (5) and logged (4) "
+          f"paths and pfarm's displacement, chain and full pool; "
+          f"max_abs_err {err}", flush=True)
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the baselines at full size
+# ---------------------------------------------------------------------------
+
+def _clone(table):
+    return type(table)(*(f.clone() for f in table))
+
+
+def _walk_bytes(scheme, cfg, B, n_ok, pm_total) -> float:
+    """Bytes the serial walk must move for B ops: each op's key, value and
+    flag read and its ok and pm written; the candidate token bytes read
+    (level 4, pfarm the window); per committed op one slot (32 B) and its
+    token written; level's moves one more slot read and two written."""
+    toks = 4 if scheme == "level" else cfg.window
+    moves = (pm_total - 2 * n_ok) // 3 if scheme == "level" else 0
+    return B * (16 + 16 + 1 + 8 + toks) + n_ok * 33 + moves * 99
+
+
+def _walk_check(torch, scheme, op, cfg, table, ids, vseed, plain_dev):
+    """One batch through the kernel on a clone of the loaded ``table`` and
+    through the plain version on a copy on ``plain_dev`` ("cuda": the
+    card's tensors; "cpu": a host copy, several times faster per op for
+    large batches): every field, ok and pm must be equal.  Returns (ok,
+    pm, plain seconds, max_abs_err)."""
+    from repro_torch.kernels import scan_walk
+    from repro_torch.kernels.scan_walk_ref import scan_walk_ref
+
+    def words(dev):
+        k, v = _walk_words(torch, ids, vseed, dev)
+        return (k, None if op == "delete" else v,
+                torch.ones(len(ids), dtype=torch.bool, device=dev))
+    a = _clone(table)
+    (okk, pmk), _ = _timed(torch, lambda: scan_walk.scan_walk(
+        scheme, op, cfg, a, *words("cuda")))
+    b = (_clone(table) if plain_dev == "cuda" else
+         type(table)(*(f.cpu() for f in table)))
+    x = words(plain_dev)
+    (okp, pmp), t_plain = _timed(torch, lambda: scan_walk_ref(
+        scheme, op, cfg, b, *x))
+    same = all(torch.equal(f.to(g.device), g) for f, g in zip(a, b))
+    del a, b
+    torch.cuda.empty_cache()
+    okk, pmk = okk.cpu(), pmk.cpu()
+    err = max(int((okk - okp.cpu()).abs().max()),
+              int((pmk - pmp.cpu()).abs().max()))
+    _check(same and err == 0, f"scan_walk equals its plain version on the "
+           f"full-size {scheme} table ({op}, B={len(ids)}, plain version on "
+           f"{plain_dev})")
+    return okk, pmk, t_plain, err
+
+
+def _chase_us(torch, data, elem, steps, seed, before=None) -> float:
+    """Median device µs per dependent load of the walk's latency chase over
+    three seeds, ``before()`` run ahead of each (it sets the L2 state)."""
+    from repro_torch.kernels import scan_walk
+    us = []
+    for r in range(3):
+        if before is not None:
+            before()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        scan_walk.chase(data, elem, steps, seed + r)
+        e.record()
+        e.synchronize()
+        us.append(s.elapsed_time(e) * 1e3 / steps)
+    return sorted(us)[1]
+
+
+def _walk_floor(torch, scheme, table, card) -> dict:
+    """The walk's latency floor on the loaded table: a dependent chain of
+    random single-byte loads (one warp, ld.cg as the walk's) over its main
+    token array, warm (just read through) and cold (after a pass over the
+    slot keys), and over its slot keys (16 B apart); the chase is first
+    held against its plain version on the same arrays."""
+    from repro_torch.kernels import scan_walk
+    from repro_torch.kernels.scan_walk_ref import chase_ref
+    tok = table.ttok if scheme == "level" else table.tok
+    slots = (table.tkeys if scheme == "level" else table.keys)
+    slots = slots.view(torch.uint8).reshape(-1)
+    for data, elem in ((tok, 1), (slots, 16)):
+        got = scan_walk.chase(data, elem, 512, SEED + 9)
+        _check(torch.equal(got.cpu(), chase_ref(data, elem, 512, SEED + 9)),
+               f"the latency chase equals its plain version ({scheme}, "
+               f"{data.numel()} bytes, element {elem} B)")
+    def warm():
+        torch.count_nonzero(tok)
+    def cold():
+        torch.count_nonzero(slots)
+    out = {"tok_warm_us": _chase_us(torch, tok, 1, CHASE_STEPS, SEED + 10,
+                                    warm),
+           "tok_cold_us": _chase_us(torch, tok, 1, CHASE_COLD_STEPS,
+                                    SEED + 20, cold),
+           "slot_us": _chase_us(torch, slots, 16, CHASE_COLD_STEPS,
+                                SEED + 30, cold)}
+    print(f"scan_walk {scheme} latency floor (one warp, dependent random byte "
+          f"loads): token array of {tok.numel()} B {out['tok_warm_us']:.4f} "
+          f"us per load warm ({CHASE_STEPS} loads after a pass over it), "
+          f"{out['tok_cold_us']:.4f} us cold ({CHASE_COLD_STEPS} loads after "
+          f"a pass over the slot keys); slot keys ({slots.numel()} B, 16 B "
+          f"apart) {out['slot_us']:.4f} us [{card}]", flush=True)
+    return out
+
+
+def _walk_timing(torch, scheme, store, table, card) -> tuple:
+    """The serial walk on the loaded full-size table, uncounted: every mode
+    held against the plain version at the main path's batch size (insert
+    at LOAD_BATCH, update and delete at QUERY_B), on a clone and a host
+    copy; then per mode one batch of WALK_B held against the plain version
+    on the card's tensors (its time is the report's plain_ms), the
+    kernel's device time over fresh batches of WALK_B, and its latency
+    floor.  Returns ({op: numbers}, the floor, max_abs_err)."""
+    from repro_torch.kernels import scan_walk
+    cfg, rng = store.cfg, np.random.RandomState(SEED + 8)
+    out, err = {}, 0
+    for op in ("insert", "update", "delete"):
+        B = LOAD_BATCH if op == "insert" else QUERY_B
+        ids = (4 * N_RECORDS + np.arange(B) if op == "insert" else
+               np.where(rng.rand(B) < 0.9, rng.choice(N_RECORDS, B),
+                        N_RECORDS + rng.choice(N_RECORDS, B)))
+        okk, pmk, t_plain, e = _walk_check(torch, scheme, op, cfg, table,
+                                           ids, 100, "cpu")
+        err = max(err, e)
+        print(f"scan_walk {scheme} {op} equals its plain version at B={B} "
+              f"on a clone of the full-size table ({int(okk.sum())} ops "
+              f"committed, PM writes per op seen {sorted(set(pmk.tolist()))}"
+              f"; plain version on a host copy {t_plain:.1f} s = "
+              f"{t_plain / B * 1e6:.1f} us per op) [{card}]", flush=True)
+
+        def timed_ids(i):
+            return (2 * N_RECORDS + i * WALK_B + np.arange(WALK_B)
+                    if op == "insert" else rng.choice(N_RECORDS, WALK_B))
+
+        def batch(i):
+            k, v = _walk_words(torch, timed_ids(i), i, "cuda")
+            return (k, None if op == "delete" else v,
+                    torch.ones(WALK_B, dtype=torch.bool, device="cuda"))
+        okk, pmk, t_plain, e = _walk_check(torch, scheme, op, cfg, table,
+                                           timed_ids(0), 0, "cuda")
+        err = max(err, e)
+        a = _clone(table)
+        ms = _device_ms(torch, lambda z: scan_walk.scan_walk(scheme, op, cfg,
+                                                             a, *z),
+                        [batch(i) for i in range(1, 5)], 8, KERNEL_SLEEP)
+        n_ok, pm_total = int(okk.sum()), int(pmk.sum())
+        nbytes = _walk_bytes(scheme, cfg, WALK_B, n_ok, pm_total)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[op] = {"ms": ms, "plain_ms": t_plain * 1e3, "bound_ms": bound_ms,
+                   "us_per_op": ms * 1e3 / WALK_B}
+        print(f"scan_walk {scheme} {op}: {ms * 1e3:.2f} us on the device per "
+              f"launch at B={WALK_B} = {ms * 1e3 / WALK_B:.4f} us per op "
+              f"(bound {bound_ms * 1e3:.3f} us from {nbytes / 1e6:.3f} MB; "
+              f"plain version on the card's tensors {t_plain * 1e3:.1f} ms, "
+              f"host clock), {n_ok} ops committed, equal to the plain "
+              f"version [{card}]", flush=True)
+        del a
+        torch.cuda.empty_cache()
+    return out, _walk_floor(torch, scheme, table, card), err
+
+
+def baselines_phase(torch, api, ycsb, keys, vals, card) -> tuple:
+    """Phase 3c: level and pfarm at the continuity cell's size, launches of
+    the serial walk counted (its checks and timings run uncounted).
+    Returns ({scheme: numbers}, launches, {scheme: ``_walk_timing``'s
+    (timings, floor, max_abs_err)})."""
+    from repro_torch.kernels import mutate, probe, scan_walk
+    stats, timing = {}, {}
+    for k in (probe.probe_segments, mutate.mutate_segments,
+              scan_walk.scan_walk):
+        k.launches = 0
+    for scheme in ("level", "pfarm"):
+        rng = np.random.RandomState(SEED + 7)
+        store = api.make_store(scheme, table_slots=BASE_SLOTS, device="cuda")
+        table = store.create()
+        results, t_ins = _timed(torch, lambda: _load(store, table, keys,
+                                                     vals))
+        ok = torch.cat([r.ok for r in results])
+        n_ok = int(ok.sum())
+        pm = sum(int(r.ledger.pm_writes) for r in results)
+        _check(sum(int(r.ledger.ops) for r in results) == N_RECORDS,
+               f"{scheme}: the insert ledger counts every op")
+        _check(int(table.count) == n_ok,
+               f"{scheme}: table count equals acknowledged inserts")
+        extra = (pm - 2 * n_ok) // 3 if scheme == "level" else 0
+        _check(pm == (2 * n_ok + 3 * extra if scheme == "level"
+                      else 5 * n_ok),
+               f"{scheme}: Table I insert PM writes (level 2, 5 on a move; "
+               f"pfarm 5)")
+        info = (f"{extra} one-movement inserts" if scheme == "level" else
+                f"{int(table.ocount)} of {store.cfg.pool_blocks} pool "
+                f"blocks chained")
+        print(f"{scheme} load: {n_ok} of {N_RECORDS} inserts acknowledged in "
+              f"{len(results)} batches of {LOAD_BATCH}, {t_ins:.3f} s = "
+              f"{N_RECORDS / t_ins:.0f} inserts/s "
+              f"({t_ins / N_RECORDS * 1e6:.4f} us per insert), PM writes per "
+              f"committed insert {pm / n_ok:.6f}, {info}, load factor "
+              f"{float(store.load_factor(table)):.6f}, device memory in use "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB [{card}]",
+              flush=True)
+
+        def readback():
+            hit_all, reads = True, 0
+            for s in range(0, N_RECORDS, READ_BATCH):
+                res = store.lookup(table, keys[s:s + READ_BATCH])
+                o = ok[s:s + READ_BATCH]
+                hit_all &= bool(torch.equal(res.ok, o))
+                hit_all &= bool(torch.equal(res.values[o],
+                                            vals[s:s + READ_BATCH][o]))
+                reads += int(res.ledger.rdma_reads)
+            return hit_all, reads
+        (hit_all, reads), t_read = _timed(torch, readback)
+        _check(hit_all, f"{scheme}: every acknowledged insert reads back its "
+               f"value, and no unacknowledged key is found")
+        neg = store.lookup(table, ycsb.negative_keys(rng, N_RECORDS,
+                                                     READ_BATCH))
+        _check(not bool(neg.ok.any()), f"{scheme}: negative lookups miss")
+        print(f"{scheme} read-back: {N_RECORDS} lookups, every acknowledged "
+              f"key found with its value, {t_read:.3f} s = "
+              f"{N_RECORDS / t_read:.0f} lookups/s; reads per lookup (verb "
+              f"plans) {reads / N_RECORDS:.6f}, per negative lookup "
+              f"{neg.ledger.reads_per_op():.6f} [{card}]", flush=True)
+
+        # YCSB-A: zipf 0.99, 50 % reads / 50 % updates
+        cur = vals.clone()
+        t_rd = t_up = 0.0
+        n_rd = n_up = 0
+        for batch in ycsb.generate("A", N_RECORDS, YCSB_BATCHES * QUERY_B,
+                                   QUERY_B, seed=SEED + 1):
+            bids = _ycsb_ids(batch.keys)
+            rsel, usel = batch.ops == ycsb.OP_READ, batch.ops == ycsb.OP_UPDATE
+            rk = torch.from_numpy(batch.keys[rsel].view(np.int32)).cuda()
+            ri = torch.from_numpy(bids[rsel]).cuda()
+            res, t = _timed(torch, lambda: store.lookup(table, rk))
+            t_rd += t
+            n_rd += int(rsel.sum())
+            _check(torch.equal(res.ok, ok[ri]) and torch.equal(
+                res.values[res.ok], cur[ri][res.ok]),
+                f"{scheme}: YCSB-A reads return the current values")
+            uk, uv, ui = batch.keys[usel], batch.vals[usel], bids[usel]
+            (_, ures), t = _timed(torch, lambda: store.update(table, uk, uv))
+            t_up += t
+            n_up += len(ui)
+            uidx = torch.from_numpy(ui).cuda()
+            _check(torch.equal(ures.ok, ok[uidx]), f"{scheme}: an update "
+                   f"succeeds exactly where its key was acknowledged")
+            uok = ures.ok.cpu().numpy()
+            li = np.nonzero(uok)[0]
+            li = li[_last_per_key(ui[li])]
+            cur[torch.from_numpy(ui[li]).cuda()] = torch.from_numpy(
+                uv[li].view(np.int32)).cuda()
+        chk = store.lookup(table, keys[:READ_BATCH])
+        _check(torch.equal(chk.values[chk.ok], cur[:READ_BATCH][chk.ok]),
+               f"{scheme}: updated values read back")
+        print(f"{scheme} YCSB-A: {n_rd} reads in {t_rd:.3f} s = "
+              f"{n_rd / t_rd:.0f} lookups/s, {n_up} updates in {t_up:.3f} s "
+              f"= {n_up / t_up:.0f} updates/s (batches of {QUERY_B}) "
+              f"[{card}]", flush=True)
+
+        # distinct-key update and delete batches: Table I
+        acked = np.nonzero(ok.cpu().numpy())[0]
+        pick = rng.choice(acked, 2 * QUERY_B, replace=False)
+        pk, nv = ycsb.make_key(pick), ycsb.make_value(rng, QUERY_B)
+        (_, ures), t_u = _timed(torch, lambda: store.update(
+            table, pk[:QUERY_B], nv))
+        _check(bool(ures.ok.all()), f"{scheme}: updates of live keys succeed")
+        chk = store.lookup(table, pk[:QUERY_B])
+        _check(bool(chk.ok.all()) and torch.equal(
+            chk.values, torch.from_numpy(nv.view(np.int32)).cuda()),
+            f"{scheme}: committed updates read back")
+        count0 = int(table.count)
+        (_, dres), t_d = _timed(torch, lambda: store.delete(
+            table, pk[QUERY_B:]))
+        _check(bool(dres.ok.all()) and int(table.count) == count0 - QUERY_B,
+               f"{scheme}: deletes of live keys succeed")
+        _check(not bool(store.lookup(table, pk[QUERY_B:]).ok.any()),
+               f"{scheme}: deleted keys are gone")
+        upm, dpm = int(ures.ledger.pm_writes), int(dres.ledger.pm_writes)
+        table1 = (pm / n_ok, upm / QUERY_B, dpm / QUERY_B)
+        if scheme == "pfarm":
+            _check(table1 == (5.0, 5.0, 5.0), "Table I: pfarm 5 / 5 / 5")
+            info = ""
+        else:
+            _check(2.0 <= table1[0] <= 2.01 and 2.0 <= table1[1] <= 4.0
+                   and table1[2] == 1.0, "Table I: level 2 / 2-4 / 1")
+            info = (f"; {extra} one-movement inserts, "
+                    f"{(upm - 2 * QUERY_B) // 2} logged updates of "
+                    f"{QUERY_B}")
+        print(f"{scheme} Table I (PM writes per committed insert/update/"
+              f"delete): {table1}{info}; distinct-key batches of {QUERY_B}: "
+              f"update {t_u * 1e3:.3f} ms = {QUERY_B / t_u:.0f} updates/s, "
+              f"delete {t_d * 1e3:.3f} ms = {QUERY_B / t_d:.0f} deletes/s "
+              f"[{card}]", flush=True)
+        stats[scheme] = {"table1": table1, "reads_per_lookup":
+                         reads / N_RECORDS, "insert_ops_s": N_RECORDS / t_ins,
+                         "lookup_ops_s": N_RECORDS / t_read,
+                         "ycsb_update_ops_s": n_up / t_up,
+                         "update_ops_s": QUERY_B / t_u}
+        timing[scheme] = _uncounted(lambda: _walk_timing(
+            torch, scheme, store, table, card))
+        del table, results, ok, cur
+        torch.cuda.empty_cache()
+    launches = scan_walk.scan_walk.launches
+    _check(launches > 0, "the baselines path launched scan_walk")
+    _check(probe.probe_segments.launches == 0
+           and mutate.mutate_segments.launches == 0,
+           "the baselines run no continuity kernel")
+    return stats, launches, timing
+
+
+def table1_report(cont: dict, base: dict, card) -> None:
+    rows = {"continuity": cont, **base}
+    for name, r in rows.items():
+        print(f"Table I {name}: PM writes per committed insert / update / "
+              f"delete {r['table1'][0]:.6f} / {r['table1'][1]:.6f} / "
+              f"{r['table1'][2]:.6f}; reads per lookup "
+              f"{r['reads_per_lookup']:.6f}; {r['insert_ops_s']:.0f} "
+              f"inserts/s, {r['lookup_ops_s']:.0f} lookups/s, "
+              f"{r['ycsb_update_ops_s']:.0f} YCSB-A updates/s, "
+              f"{r['update_ops_s']:.0f} distinct-key updates/s [{card}]",
+              flush=True)
+    _check(tuple(cont["table1"]) == (2.0, 2.0, 1.0),
+           "Table I: continuity 2 / 2 / 1")
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the end-to-end YCSB simulator
+# ---------------------------------------------------------------------------
+
+def _e2e_order(cells) -> dict:
+    """The orderings of tests/test_rdma.py::test_end_to_end_ordering_read_
+    heavy on the cells given: {statement: holds}."""
+    out = {}
+    for wl in ("B", "C"):
+        c, l, p = (cells[s][wl]["ops_per_s"] for s in E2E_SCHEMES)
+        out[f"{wl}: continuity >= level >= pfarm ops/s"] = c >= l >= p
+    for s in ("level", "pfarm"):
+        out[f"C: continuity p99 <= {s} p99"] = (
+            cells["continuity"]["C"]["p99_us"] <= cells[s]["C"]["p99_us"])
+    return out
+
+
+def e2e_phase(torch, card) -> int:
+    """Phase 3d: ``run_ycsb`` on the card equals the CPU run at the small
+    size for three schemes x A-F (the orderings checked there), then the
+    scale-cut cells; returns the serial walk's launches on the card."""
+    from repro_torch.kernels import mutate, probe, scan_walk
+    from repro_torch.rdma import sim
+    for k in (probe.probe_segments, mutate.mutate_segments,
+              scan_walk.scan_walk):
+        k.launches = 0
+    small = {}
+    for s in E2E_SCHEMES:
+        for wl in sim.SIM_WORKLOADS:
+            got = sim.run_ycsb(s, wl, device="cuda", **E2E_SMALL)
+            want = sim.run_ycsb(s, wl, device="cpu", **E2E_SMALL)
+            _check(list(got) == list(want) and all(
+                abs(got[k] - w) <= 1e-12 * abs(w) for k, w in want.items()),
+                f"run_ycsb on the card equals the CPU run ({s} {wl})")
+            small.setdefault(s, {})[wl] = got
+    order = _e2e_order(small)
+    _check(all(order.values()), f"the paper's ordering at the small size "
+           f"({order})")
+    print(f"phase 3d: run_ycsb on the card equals the CPU run key for key "
+          f"for {', '.join(E2E_SCHEMES)} x A-F at {E2E_SMALL}; orderings "
+          f"hold there: {order}", flush=True)
+    large = {}
+    for s in E2E_SCHEMES:
+        for wl in sim.SIM_WORKLOADS:
+            res, t = _timed(torch, lambda: sim.run_ycsb(
+                s, wl, device="cuda", **E2E_LARGE))
+            _check(res["ops_per_s"] > 0 and 0 < res["p50_us"] <= res["p99_us"]
+                   and all(np.isfinite(v) for v in res.values()),
+                   f"finite simulated results ({s} {wl})")
+            large.setdefault(s, {})[wl] = res
+            print(f"e2e {s} {wl}: simulated by LinkModel: "
+                  f"{res['ops_per_s']:.0f} ops/s, p50 {res['p50_us']:.4f} us, "
+                  f"p99 {res['p99_us']:.4f} us, verbs/op "
+                  f"{res['verbs_per_op']:.4f}; wall time on the card "
+                  f"{t:.3f} s [{card}]", flush=True)
+    print(f"e2e orderings at {E2E_LARGE} (simulated by LinkModel): "
+          f"{_e2e_order(large)}", flush=True)
+    launches = {"probe_segments": probe.probe_segments.launches,
+                "mutate_segments": mutate.mutate_segments.launches,
+                "scan_walk": scan_walk.scan_walk.launches}
+    print(f"end-to-end path: kernel launches {launches}", flush=True)
+    for name, n in launches.items():
+        _check(n > 0, f"the end-to-end path launched {name}")
+    return launches["scan_walk"]
 
 
 # ---------------------------------------------------------------------------
@@ -744,10 +1293,11 @@ def _float32(torch, cfg, params):
 
 def _uncounted(run):
     """``run()`` with the kernels' launch counts left as they were: the
-    launches of a check are not the serving path's."""
+    launches of a check are not the main path's."""
     from repro_torch.kernels import mutate, paged_attn, probe
+    from repro_torch.kernels import scan_walk
     kerns = (probe.probe_segments, mutate.mutate_segments,
-             paged_attn.paged_attention)
+             paged_attn.paged_attention, scan_walk.scan_walk)
     saved = [k.launches for k in kerns]
     try:
         return run()
@@ -1141,7 +1691,7 @@ def main() -> int:
     probe.probe_segments.launches = 0
     mutate.mutate_segments.launches = 0
     t0 = time.perf_counter()
-    main_path(torch, api, ch, ycsb, K, keys, vals, card)
+    cont = main_path(torch, api, ch, ycsb, K, keys, vals, card)
     t_main = time.perf_counter() - t0
     launches = {"probe_segments": probe.probe_segments.launches,
                 "mutate_segments": mutate.mutate_segments.launches}
@@ -1151,8 +1701,37 @@ def main() -> int:
           f"[{card}]", flush=True)
     for name, n in launches.items():
         _check(n > 0, f"the request path launched {name}")
+
+    # -- phase 3b: the serial walk against its plain version -------------
+    t0 = time.perf_counter()
+    walk_err = _uncounted(lambda: walk_phase(torch, card))
+    print(f"phase 3b: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 3c: the baselines at full size, their launches counted ----
+    t0 = time.perf_counter()
+    base, walk_launches, walk_timing = baselines_phase(torch, api, ycsb,
+                                                       keys, vals, card)
+    table1_report(cont, base, card)
+    print(f"baselines path: {time.perf_counter() - t0:.1f} s, scan_walk "
+          f"launches {walk_launches} [{card}]", flush=True)
     del keys, vals
     torch.cuda.empty_cache()
+
+    # -- phase 3d: the end-to-end simulator, its launches counted --------
+    t0 = time.perf_counter()
+    e2e_phase(torch, card)
+    print(f"end-to-end path: {time.perf_counter() - t0:.1f} s", flush=True)
+    walk_err = max([walk_err] + [t[2] for t in walk_timing.values()])
+    ins, floor = walk_timing["level"][0]["insert"], walk_timing["level"][1]
+    # latency_floor_ms: WALK_B dependent trips at the warm token chase's
+    # rate, the floor the byte bound cannot show for a serial walk
+    walk_row = {"name": "scan_walk", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/scan_walk.cu",
+                "replaces": "src/repro/core/level.py:347",
+                "max_abs_err": walk_err, "ms": ins["ms"],
+                "plain_ms": ins["plain_ms"], "bound_ms": ins["bound_ms"],
+                "bound_by": "bytes", "library_ms": None,
+                "latency_floor_ms": floor["tok_warm_us"] * WALK_B / 1e3}
 
     # -- phase 4: paged attention against its plain version --------------
     rows.append(attention_phase(torch, card))
@@ -1168,11 +1747,15 @@ def main() -> int:
     batcher_phase(torch, cfg, params, card)
 
     # -- phase 7: report -------------------------------------------------
+    rows.append(walk_row)
+    launches["scan_walk"] = walk_launches
     for r in rows:
         r["launches"] = launches[r["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in order},
+         **{k: v for k, v in r.items() if k not in order}} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

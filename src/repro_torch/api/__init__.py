@@ -2,7 +2,7 @@
 
     from repro_torch import api
 
-    store = api.make_store("continuity", table_slots=4096)   # tables on cuda
+    store = api.make_store("level", table_slots=4096)   # tables on cuda
     table = store.create()
     table, res = store.insert(table, keys, vals)
     hits = store.lookup(table, keys)
@@ -14,12 +14,14 @@ where there is none raises.
 
 from repro_torch.api.registry import (available_schemes, get_scheme,
                                       make_store, register_scheme)
-from repro_torch.api.stores import ContinuityStore, _register_builtin
+from repro_torch.api.stores import (ContinuityStore, DenseStore, LevelStore,
+                                    PFarmStore, _register_builtin)
 from repro_torch.api.types import CostLedger, ExecPolicy, HashStore, OpResult
 
 _register_builtin(register_scheme)
 
 __all__ = [
     "available_schemes", "get_scheme", "make_store", "register_scheme",
-    "ContinuityStore", "CostLedger", "ExecPolicy", "HashStore", "OpResult",
+    "ContinuityStore", "LevelStore", "PFarmStore", "DenseStore",
+    "CostLedger", "ExecPolicy", "HashStore", "OpResult",
 ]

@@ -6,7 +6,9 @@ device, **overrides)`` and returns a store sized to roughly
 
     from repro_torch import api
     store = api.make_store("continuity", table_slots=4096)   # on cuda
-    store = api.make_store("continuity", device="cpu")       # tests
+    store = api.make_store("pfarm", device="cpu")            # tests
+
+Registered: continuity, level, pfarm, dense (the reference's order).
 """
 
 from __future__ import annotations

@@ -27,9 +27,10 @@ from repro_torch.core.pmem import CostLedger
 ENGINES = ("wave", "serial")
 PROBES = ("gather", "kernel", "reference")
 MUTATES = ("gather", "kernel", "reference")
+TRANSPORTS = ("none", "sim")
 
 __all__ = ["CostLedger", "ExecPolicy", "HashStore", "OpResult", "ENGINES",
-           "PROBES", "MUTATES"]
+           "PROBES", "MUTATES", "TRANSPORTS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,16 +48,25 @@ class ExecPolicy:
       three values, for the mutation-plan kernel.
     * ``use_fp`` — fingerprint pre-filter in the probe path (default ON;
       result-identical).  The mutation plan always filters.
+    * ``transport`` — what host-side drivers post the verb plans to:
+      ``"none"`` (plans price the `CostLedger` only) or ``"sim"`` (a
+      `repro_torch.rdma.RemoteMemory` endpoint with doorbell batching and
+      the analytical latency model; ``RemoteMemory.from_policy(policy)``).
+
+    Level, pfarm and dense have one write strategy (the serial walk or
+    batched torch ops) and no read kernel: they accept every value of
+    ``engine``, ``probe`` and ``mutate`` and ignore them.
     """
 
     engine: str = "wave"
     probe: str = "kernel"
     mutate: str = "kernel"
     use_fp: bool = True
+    transport: str = "none"
 
     def __post_init__(self):
         for name, legal in (("engine", ENGINES), ("probe", PROBES),
-                            ("mutate", MUTATES)):
+                            ("mutate", MUTATES), ("transport", TRANSPORTS)):
             if getattr(self, name) not in legal:
                 raise ValueError(f"ExecPolicy.{name} must be one of {legal}, "
                                  f"got {getattr(self, name)!r}")

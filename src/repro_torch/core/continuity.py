@@ -30,7 +30,7 @@ Differences from the reference, by design:
     invariant that their indices are pairwise distinct.
 
 Only the wave engine is ported; the serial ``lax.scan`` oracles, resize /
-split, ``scan_plan`` and ``insert_parallel`` are not part of this port yet.
+split and ``insert_parallel`` are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -44,8 +44,8 @@ import torch
 
 from repro_torch.core import pmem
 from repro_torch.core.hashfn import hash128, hash128_2
-from repro_torch.core.words import (as_words, bit, popcount, resolve_device,
-                                    to_i32, u32)
+from repro_torch.core.words import (as_words, batch_words, bit, popcount,
+                                    resolve_device, to_i32, u32)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -384,6 +384,23 @@ def lookup_plan(cfg: ContinuityConfig, table: ContinuityTable, keys,
     return rv.pack(keys.shape[0], lanes, keys.device)
 
 
+def scan_plan(cfg: ContinuityConfig, table: ContinuityTable, keys, spans):
+    """Verb plan of a YCSB-E short-scan batch: ONE contiguous multi-segment
+    READ per scan, whatever the span — ``ceil(span / slots_per_pair)``
+    consecutive rows from the start key's pair (clamped to the table's
+    tail), where the scattered baselines pay one READ per record."""
+    from repro_torch.rdma import verbs as rv
+    keys = _keys_in(table, keys)
+    spans = torch.from_numpy(np.maximum(
+        np.asarray(spans, np.int32).reshape(-1), 1)).to(keys.device, I64)
+    pair, _ = locate(cfg, keys)
+    rows = -(-spans // cfg.slots_per_pair)          # ceil: rows crossed
+    start = torch.minimum(pair, (cfg.num_pairs - rows).clamp(min=0))
+    return rv.pack(keys.shape[0], [
+        (rv.READ, rv.REGION_TABLE, start * cfg.row_bytes,
+         rows * cfg.row_bytes, 0, False)], keys.device)
+
+
 def version_stamp(cfg: ContinuityConfig, table: ContinuityTable, keys):
     """(B, 2) version stamp per key: ``[version, indicator]`` of the key's
     home pair — the two halves of the ONE 8-byte word every committed
@@ -560,21 +577,6 @@ def _reorder_ext_pool(cfg: ContinuityConfig, table: ContinuityTable,
     table.ext_vals[new_s] = table.ext_vals[inv[new_s]]
 
 
-def _batch_arrays(table: ContinuityTable, keys, vals=None, mask=None):
-    keys = _keys_in(table, keys)
-    B = keys.shape[0]
-    if vals is not None:
-        vals = _keys_in(table, vals, VAL_LANES)
-    if mask is None:
-        active = torch.ones(B, dtype=torch.bool, device=keys.device)
-    elif isinstance(mask, torch.Tensor):
-        active = mask.reshape(B).to(device=keys.device, dtype=torch.bool)
-    else:
-        active = torch.from_numpy(
-            np.asarray(mask, dtype=bool).reshape(B)).to(keys.device)
-    return keys, vals, active
-
-
 def _fp_side_words(cfg, P, okf, pair, slot, fpv, device):
     """(fclear, fnew) flat (2P,) int32 masks of the claimed main slots'
     fp fields: disjoint 2-bit fields, so scatter-adds compose like the
@@ -702,7 +704,7 @@ def insert(cfg: ContinuityConfig, table: ContinuityTable, keys, vals,
     """Server-side batched insert on the wave engine, in place. 2 PM
     writes/op (3 on the stash path).  Returns ``(table, ok, ledger)`` with
     the table object it was given, mutated."""
-    keys, vals, active = _batch_arrays(table, keys, vals, mask)
+    keys, vals, active = batch_words(table.keys.device, keys, vals, mask)
     B = keys.shape[0]
     dev = keys.device
     table, ok, unsafe_s, idx_s, gpos, gidx = _insert_fused(
@@ -927,7 +929,7 @@ def delete(cfg: ContinuityConfig, table: ContinuityTable, keys, mask=None,
     """Server-side batched delete on the wave engine, in place. 1 PM
     write/op (2 for stash entries).  ``probe`` selects the match backend
     (see `_mutation_match`).  Returns ``(table, ok, ledger)``."""
-    keys, _, active = _batch_arrays(table, keys, mask=mask)
+    keys, _, active = batch_words(table.keys.device, keys, mask=mask)
     table, ok, pm, unsafe = _delete_fused(cfg, table, keys, active,
                                           probe=probe)
     if bool(unsafe.any()):
@@ -1072,7 +1074,7 @@ def update(cfg: ContinuityConfig, table: ContinuityTable, keys, vals,
     place.  2 PM writes/op; both bit flips land in ONE indicator store (3
     writes when the op relocates a stash entry).  ``probe`` selects the
     match backend.  Returns ``(table, ok, ledger)``."""
-    keys, vals, active = _batch_arrays(table, keys, vals, mask)
+    keys, vals, active = batch_words(table.keys.device, keys, vals, mask)
     table, ok, pm, unsafe = _update_fused(cfg, table, keys, vals, active,
                                           probe=probe)
     if bool(unsafe.any()):

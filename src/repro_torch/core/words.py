@@ -68,3 +68,21 @@ def as_words(x, lanes: int, device) -> torch.Tensor:
             a = (a.astype(np.int64) & MASK32).astype(np.uint32).view(np.int32)
         t = torch.from_numpy(np.ascontiguousarray(a))
     return t.to(device).reshape(-1, lanes).contiguous()
+
+
+def batch_words(device, keys, vals=None, mask=None):
+    """A write batch on ``device``: ``(keys, vals, active)`` with keys and
+    values as (B, 4) int32 words (vals None when not given) and ``active``
+    (B,) bool, all-True when ``mask`` is None."""
+    keys = as_words(keys, 4, device)
+    B = keys.shape[0]
+    if vals is not None:
+        vals = as_words(vals, 4, device)
+    if mask is None:
+        active = torch.ones(B, dtype=torch.bool, device=device)
+    elif isinstance(mask, torch.Tensor):
+        active = mask.reshape(B).to(device=device, dtype=torch.bool)
+    else:
+        active = torch.from_numpy(
+            np.asarray(mask, dtype=bool).reshape(B)).to(device)
+    return keys, vals, active

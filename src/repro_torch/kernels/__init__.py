@@ -1,2 +1,2 @@
-"""Kernels (CUDA for Hopper): segment probe, mutation plan, paged attention;
-and their plain versions."""
+"""Kernels (CUDA for Hopper): segment probe, mutation plan, paged attention
+and the baselines' serial walk; and their plain versions."""

@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-SOURCES = ("segment_probe.cu", "paged_attn.cu")
+SOURCES = ("segment_probe.cu", "paged_attn.cu", "scan_walk.cu")
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -110,6 +110,13 @@ def paged_attn_lib() -> ctypes.CDLL:
     return _library("paged_attn.cu", "paged_attn_launch",
                     [ctypes.c_int] + [ctypes.c_void_p] * 7
                     + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def scan_walk_lib() -> ctypes.CDLL:
+    """The serial-walk library, built and loaded once per process."""
+    return _library("scan_walk.cu", "scan_walk_launch",
+                    [ctypes.c_int] + [ctypes.c_void_p] * 13
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4)
 
 
 MODE_PROBE, MODE_PROBE_FP, MODE_MUTATE = 0, 1, 2
@@ -352,4 +359,136 @@ def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float,
             splits, float(scale), stream)
     if err:
         raise RuntimeError(f"paged_attn_launch failed: cudaError {err}")
+    return out
+
+
+SCAN_WALK_MODES = {("level", "insert"): 0, ("level", "update"): 1,
+                   ("level", "delete"): 2, ("pfarm", "insert"): 3,
+                   ("pfarm", "update"): 4, ("pfarm", "delete"): 5}
+
+
+def _need_dtype(t: torch.Tensor, name: str, dtype, device) -> None:
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor on "
+                         f"{device}, got {t.dtype} on {t.device}")
+
+
+def launch_scan_walk(scheme: str, op: str, cfg, table, keys, vals, active):
+    """Check the operands and launch the serial walk (prologue + one-warp
+    walk) on the current stream; the table updates in place.  Returns
+    ``(ok, pm)``, each (B,) int32.  Reads nothing back from the device.
+    Raises on any operand it does not take or a failed launch."""
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    mode = SCAN_WALK_MODES[(scheme, op)]
+    B = keys.shape[0]
+    bs = cfg.bucket_slots
+    if scheme == "level":
+        a = (table.tkeys, table.tvals, table.ttok)
+        b = (table.bkeys, table.bvals, table.btok)
+        n_a, n_b, window, max_chain = cfg.num_top, cfg.num_bottom, 0, 0
+        chain = (None, None, None)
+        if 4 * bs > 32:
+            raise ValueError(f"4 candidate buckets x {bs} slots exceed a warp")
+    else:
+        a = (table.keys, table.vals, table.tok)
+        b = (table.okeys, table.ovals, table.otok)
+        n_a, n_b = cfg.num_buckets, cfg.pool_blocks
+        window, max_chain = cfg.window, cfg.max_chain
+        chain = (table.head, table.onext, table.ocount)
+        for name, t in zip(("head", "onext", "ocount"), chain):
+            _need_dtype(t, name, torch.int32, dev)
+        if window * bs > 32:
+            raise ValueError(f"a window of {window} x {bs} slots exceeds a "
+                             f"warp")
+    if not (1 <= bs <= 8) or n_a >= 2 ** 31 or n_b >= 2 ** 31:
+        raise ValueError(f"unsupported geometry: {cfg}")
+    for name, (n, t) in zip(("keys_a", "vals_a", "keys_b", "vals_b"),
+                            ((n_a, a[0]), (n_a, a[1]), (n_b, b[0]),
+                             (n_b, b[1]))):
+        _need(t, name, (n, bs, 4), dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    _need_dtype(a[2], "tok_a", torch.uint8, dev)
+    _need_dtype(b[2], "tok_b", torch.uint8, dev)
+    _need_dtype(table.count, "count", torch.int32, dev)
+    _need(keys, "keys", (B, 4), dev)
+    if (op == "delete") != (vals is None):
+        raise ValueError("vals go with insert and update only")
+    if vals is not None:
+        _need(vals, "vals", (B, 4), dev)
+    _need_dtype(active, "active", torch.bool, dev)
+    for name, t in (("keys", keys), ("vals", vals)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    ok = torch.empty(B, dtype=torch.int32, device=dev)
+    pm = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return ok, pm
+    cand = torch.empty(B * (4 if scheme == "level" else 1), dtype=torch.int32,
+                       device=dev)
+    lib = scan_walk_lib()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.scan_walk_launch(
+            mode, *(ptr(t) for t in a + b + chain), table.count.data_ptr(),
+            keys.data_ptr(), ptr(vals), active.data_ptr(), B, n_a, n_b, bs,
+            window, max_chain, cand.data_ptr(), ok.data_ptr(), pm.data_ptr(),
+            stream)
+    if err:
+        raise RuntimeError(f"scan_walk_launch failed: cudaError {err}")
+    return ok, pm
+
+
+def launch_scan_walk_hash(keys: torch.Tensor):
+    """The serial walk's device ``hash128`` and ``hash128_2`` of (B, 4) key
+    words, as two (B,) int32 tensors holding the uint32 bits."""
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    B = keys.shape[0]
+    _need(keys, "keys", (B, 4), dev)
+    if keys.data_ptr() % 16:
+        raise ValueError("keys must be 16-byte aligned")
+    h1 = torch.empty(B, dtype=torch.int32, device=dev)
+    h2 = torch.empty(B, dtype=torch.int32, device=dev)
+    fn = scan_walk_lib().scan_walk_hash_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(keys.data_ptr(), B, h1.data_ptr(), h2.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"scan_walk_hash_launch failed: cudaError {err}")
+    return h1, h2
+
+
+def launch_scan_walk_chase(data: torch.Tensor, elem: int, steps: int,
+                           seed: int) -> torch.Tensor:
+    """The serial walk's latency chase over the contiguous uint8 ``data``
+    (``scan_walk.chase``); returns the final state as a (1,) int32 tensor
+    holding its uint32 bits.  Reads nothing back from the device."""
+    dev = data.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    _need_dtype(data, "data", torch.uint8, dev)
+    if data.dim() != 1 or not (1 <= elem <= data.shape[0]) or steps < 0:
+        raise ValueError(f"chase takes a 1-d array of at least one element "
+                         f"of {elem} bytes and steps >= 0")
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    fn = scan_walk_lib().scan_walk_chase_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(data.data_ptr(), data.shape[0], elem, steps,
+                 seed & 0xFFFFFFFF, out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"scan_walk_chase_launch failed: cudaError {err}")
     return out

@@ -59,14 +59,16 @@ def assert_results_equal(jres, tres):
 
 
 def test_registry_and_protocol():
-    assert api.available_schemes() == ("continuity",)
+    assert api.available_schemes() == ("continuity", "level", "pfarm",
+                                       "dense")
+    assert api.available_schemes() == japi.available_schemes()
     store = cpu_store()
     assert isinstance(store, api.HashStore)
     assert store.device == "cpu"
     assert store.policy == api.ExecPolicy()
     assert hash(store) == hash(dataclasses.replace(store))
     with pytest.raises(ValueError, match="unknown scheme"):
-        api.make_store("level")
+        api.make_store("cuckoo")
     with pytest.raises(ValueError, match="already registered"):
         api.register_scheme("continuity", api.ContinuityStore.from_slots)
 

@@ -6,11 +6,15 @@ machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Integer outputs must match exactly; attention outputs within the
-tolerances of ``tests/test_kernels.py`` (float32 2e-5, bfloat16 6e-2).
-The plain versions are themselves held against the JAX package on the CPU
-(``tests/test_torch_kernels.py``, ``tests/test_torch_paged_attn.py``).
+Integer outputs must match exactly (the serial walk: every table field,
+``ok`` and ``pm``); attention outputs within the tolerances of
+``tests/test_kernels.py`` (float32 2e-5, bfloat16 6e-2).  The plain
+versions are themselves held against the JAX package on the CPU
+(``tests/test_torch_kernels.py``, ``tests/test_torch_paged_attn.py``,
+``tests/test_torch_baselines.py``).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -19,12 +23,16 @@ import torch
 from repro_torch import api, convert
 from repro_torch.configs import smoke_config
 from repro_torch.core import continuity as ch
+from repro_torch.core import hashfn
+from repro_torch.core import level as lv
+from repro_torch.core import pfarm as pf
 from repro_torch.data import ycsb
-from repro_torch.kernels import _cuda, mutate, paged_attn, probe
+from repro_torch.kernels import _cuda, mutate, paged_attn, probe, scan_walk
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.mutate_ref import mutate_ref
 from repro_torch.kernels.paged_attn_ref import paged_attention_ref
 from repro_torch.kernels.probe_ref import probe_ref
+from repro_torch.kernels.scan_walk_ref import scan_walk_ref
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ShapeConfig
 from repro_torch.serving import engine as E
@@ -627,3 +635,195 @@ def test_serve_steps_on_card_match_cpu(dev):
         assert np.array_equal(sc[f], sg[f]), f
     for f in ("kpool", "vpool"):
         np.testing.assert_allclose(sg[f], sc[f], atol=1e-5, rtol=0)
+
+
+# -- the serial walk (level and P-FaRM-KV write paths) -----------------------
+
+WALK_CFG = {"level": lv.LevelConfig(num_top=1024),
+            "pfarm": pf.PFarmConfig(num_buckets=1024)}
+WALK_LOAD = {"level": 5500, "pfarm": 4600}
+FROM_NP = {"level": convert.level_table_from_numpy,
+           "pfarm": convert.pfarm_table_from_numpy}
+TO_NP = {"level": convert.level_table_to_numpy,
+         "pfarm": convert.pfarm_table_to_numpy}
+
+
+@functools.lru_cache(maxsize=None)
+def walk_prestate(scheme):
+    """A table at high load (level ~0.9, pfarm ~0.9 with chains), built on
+    the CPU by the plain version, as numpy fields."""
+    cfg = WALK_CFG[scheme]
+    mod = lv if scheme == "level" else pf
+    t = mod.create(cfg, "cpu")
+    n = WALK_LOAD[scheme]
+    keys = torch.from_numpy(ycsb.make_key(np.arange(n)).view(np.int32))
+    vals = torch.from_numpy(ycsb.make_value(np.random.RandomState(0), n)
+                            .view(np.int32))
+    scan_walk_ref(scheme, "insert", cfg, t, keys, vals,
+                  torch.ones(n, dtype=torch.bool))
+    return TO_NP[scheme](t)
+
+
+def walk_both(scheme, op, cfg, pre, ids, vseed=1, active=None):
+    """The batch through the kernel (card) and its plain version (CPU)
+    from the same pre-state; asserts every field, ok and pm equal and the
+    launch counted; returns the CPU table and (ok, pm)."""
+    keys = ycsb.make_key(np.asarray(ids)).view(np.int32)
+    vals = ycsb.make_value(np.random.RandomState(vseed), len(ids)).view(
+        np.int32)
+    if active is None:
+        active = np.ones(len(ids), bool)
+    outs = []
+    for d in ("cpu", "cuda"):
+        t = FROM_NP[scheme](pre, d)
+        k = torch.from_numpy(keys).to(d)
+        v = None if op == "delete" else torch.from_numpy(vals).to(d)
+        a = torch.from_numpy(active).to(d)
+        n0 = scan_walk.scan_walk.launches
+        ok, pm = scan_walk.scan_walk(scheme, op, cfg, t, k, v, a)
+        assert scan_walk.scan_walk.launches == n0 + (d == "cuda")
+        outs.append((t, ok, pm))
+    torch.cuda.synchronize()
+    (tc, okc, pmc), (tg, okg, pmg) = outs
+    got, want = TO_NP[scheme](tg), TO_NP[scheme](tc)
+    for f in want:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    assert torch.equal(okg.cpu(), okc) and torch.equal(pmg.cpu(), pmc)
+    return tc, okc, pmc
+
+
+@pytest.mark.parametrize("variant", ["plain", "masked_dups"])
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 4096])
+@pytest.mark.parametrize("op", ["insert", "update", "delete"])
+@pytest.mark.parametrize("scheme", ["level", "pfarm"])
+def test_scan_walk_matches_plain(dev, scheme, op, B, variant):
+    cfg, pre = WALK_CFG[scheme], walk_prestate(scheme)
+    rng = np.random.RandomState(B)
+    n = WALK_LOAD[scheme]
+    if op == "insert":
+        ids = np.arange(n, n + B)
+    else:           # present keys, a few absent
+        ids = np.where(rng.rand(B) < 0.85, rng.randint(0, n, B),
+                       rng.randint(n, 2 * n, B))
+    active = None
+    if variant == "masked_dups":
+        ids[rng.rand(B) < 0.2] = ids[0]
+        active = rng.rand(B) < 0.75
+    _, ok, pm = walk_both(scheme, op, cfg, pre, ids, active=active)
+    if B == 4096:
+        assert 0 < int(ok.sum()) < B
+
+
+def test_scan_walk_level_move_and_logged_paths(dev):
+    """The crafted num_top-4 state of tests/test_torch_baselines.py in one
+    batch: 12 plain inserts, then a one-movement insert (5 PM writes);
+    then a logged update (4) and an out-of-place one (2)."""
+    cfg = lv.LevelConfig(num_top=4)
+    ids = np.arange(20_000)
+    cand = lv._cand_buckets(cfg, torch.from_numpy(
+        ycsb.make_key(ids).view(np.int32))).numpy()
+    inner = ids[(cand[:, 0] < 2) & (cand[:, 1] < 2)]
+    first = ids[(cand[:, 0] == 0) & (cand[:, 1] == 2)][:1]
+    last = inner[11:][cand[inner[11:], 0] == 0][:1]
+    order = np.concatenate([first, inner[:11], last])
+    empty = convert.level_table_to_numpy(lv.create(cfg, "cpu"))
+    t, ok, pm = walk_both("level", "insert", cfg, empty, order)
+    assert pm.tolist() == [2] * 12 + [5]
+    t, ok, pm = walk_both("level", "update", cfg,
+                          convert.level_table_to_numpy(t),
+                          np.concatenate([order[[12]], first]))
+    assert pm.tolist() == [4, 2]
+
+
+def _ids_with_home(cfg, want, n):
+    ids = np.arange(200_000)
+    home = pf._home(cfg, torch.from_numpy(ycsb.make_key(ids).view(np.int32)))
+    return ids[home.numpy() == want][:n]
+
+
+def test_scan_walk_pfarm_displace_chain_and_full_pool(dev):
+    """A full window whose last bucket holds items of a later home: the
+    25th insert displaces one into bucket 6; later ones chain blocks until
+    the 4-block pool is full and inserts fail."""
+    cfg = pf.PFarmConfig(num_buckets=16)
+    ids = np.concatenate([_ids_with_home(cfg, 5, 4),
+                          _ids_with_home(cfg, 0, 20 + 1 + 40)])
+    empty = convert.pfarm_table_to_numpy(pf.create(cfg, "cpu"))
+    t, ok, pm = walk_both("pfarm", "insert", cfg, empty, ids)
+    assert int(t.ocount) == cfg.pool_blocks and int(t.head[0]) >= 0
+    assert not bool(ok.all()) and set(pm.tolist()) == {0, 5}
+    t1, _, _ = walk_both("pfarm", "insert", cfg, empty, ids[:25])
+    np.testing.assert_array_equal(t1.keys[6, 0].numpy(),
+                                  ycsb.make_key(ids[:1]).view(np.int32)[0])
+    for op in ("update", "delete"):    # hits in the window and the chain
+        _, ok, _ = walk_both("pfarm", op, cfg, convert.pfarm_table_to_numpy(t),
+                             ids[::-1])
+        assert bool(ok.any())
+
+
+def test_scan_walk_device_hash_equals_hashfn(dev):
+    rng = np.random.RandomState(7)
+    keys = torch.from_numpy(rng.randint(0, 2 ** 32, size=(1 << 20, 4),
+                                        dtype=np.uint64).astype(np.uint32)
+                            .view(np.int32))
+    h1, h2 = _cuda.launch_scan_walk_hash(keys.to(dev))
+    torch.cuda.synchronize()
+    want1, want2 = hashfn.hash128(keys), hashfn.hash128_2(keys)
+    assert torch.equal(h1.cpu().to(torch.int64) & 0xFFFFFFFF, want1)
+    assert torch.equal(h2.cpu().to(torch.int64) & 0xFFFFFFFF, want2)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 4096])
+@pytest.mark.parametrize("elem", [1, 16])
+def test_scan_walk_latency_chase_matches_plain(dev, elem, steps):
+    rng = np.random.RandomState(steps + elem)
+    data = torch.from_numpy(rng.randint(0, 256, (1 << 20) + 3)
+                            .astype(np.uint8))
+    got = scan_walk.chase(data.to(dev), elem, steps, 0x9E3779B9)
+    assert torch.equal(got.cpu(), scan_walk.chase(data, elem, steps,
+                                                  0x9E3779B9))
+
+
+def test_scan_walk_rejects_what_it_does_not_take(dev):
+    cfg = pf.PFarmConfig(num_buckets=64, window=9)          # 36 lanes
+    t = pf.create(cfg, dev)
+    k = torch.zeros((4, 4), dtype=torch.int32, device=dev)
+    a = torch.ones(4, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="warp"):
+        scan_walk.scan_walk("pfarm", "insert", cfg, t, k, k, a)
+    cfg = pf.PFarmConfig(num_buckets=64)
+    t = pf.create(cfg, dev)
+    with pytest.raises(ValueError, match="vals"):
+        scan_walk.scan_walk("pfarm", "delete", cfg, t, k, k, a)
+    n0 = scan_walk.scan_walk.launches
+    ok, pm = scan_walk.scan_walk("pfarm", "insert", cfg, t, k[:0], k[:0],
+                                 a[:0])
+    assert ok.shape == (0,) and scan_walk.scan_walk.launches == n0
+
+
+def test_baseline_stores_on_card_match_cpu(dev):
+    """Each scheme's store on the card (serial-walk kernel for level and
+    pfarm) leaves the same tables, results and ledgers as on the CPU."""
+    rng = np.random.RandomState(3)
+    ids = np.concatenate([np.arange(900), rng.randint(0, 900, 40)])
+    keys, vals = ycsb.make_key(ids), ycsb.make_value(rng, len(ids))
+    q = np.concatenate([keys, ycsb.negative_keys(rng, 900, 100)])
+    for scheme, to_np in (("level", convert.level_table_to_numpy),
+                          ("pfarm", convert.pfarm_table_to_numpy),
+                          ("dense", convert.dense_table_to_numpy)):
+        out = []
+        for d in ("cpu", "cuda"):
+            st = api.make_store(scheme, table_slots=1000, device=d)
+            t, r1 = st.insert(st.create(), keys, vals)
+            t, r2 = st.update(t, keys[::2], vals[::-2])
+            t, r3 = st.delete(t, keys[1::3])
+            r4 = st.lookup(t, q)
+            out.append((to_np(t), [r1.ok, r2.ok, r3.ok, r4.ok, r4.values,
+                                   r4.reads, *r4.plan],
+                        [[int(x) for x in r.ledger]
+                         for r in (r1, r2, r3, r4)]))
+        (tc, rc, lc), (tg, rg, lg) = out
+        for f in tc:
+            np.testing.assert_array_equal(tg[f], tc[f], err_msg=f)
+        assert all(torch.equal(a, b.cpu()) for a, b in zip(rc, rg))
+        assert lc == lg
