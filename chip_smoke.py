@@ -44,6 +44,27 @@ Phases, in order:
    ``tests/test_rdma.py``), then the same cells at 1,048,576 records /
    262,144 ops / batches of 4,096, their simulated ops/s and latencies
    (``LinkModel`` outputs) beside each cell's wall time on the card.
+3e. The continuity store's maintenance and crash-consistency surface, every
+   store kernel's launch count set to 0 just before and read after: a fresh
+   full-size table (as phase 2's) loaded; (a) ``insert_serial`` /
+   ``update_serial`` / ``delete_serial`` on clones of it, batches of 2,048
+   distinct and zipf-with-duplicates keys, each equal to the wave engine on
+   a twin clone in every field, ok and the ledger (µs per op), then a small
+   table whose inserts spill into its stash (card serial, card wave and CPU
+   serial equal); (b) ``continuity.resize`` of the loaded table to 2**24
+   buckets, every one of the 50,331,648 keys looked up through the probe
+   kernel (acknowledged ones found with their values), count kept, every
+   new version above the old unsigned maximum; (c) the online split at full
+   size, ``begin_resize(step_slo_us=25)`` then 300 steps interleaved with
+   routed update / delete / insert batches and dual reads, held against a
+   host oracle (nothing lost or duplicated), ms per step beside
+   ``LinkModel.cohort_move_us``; then a 2**12-bucket stash table split to
+   completion and cut over, on the card and on the CPU, byte-equal; (d)
+   ``consistency.matrix.run_rows`` on the card equal to the CPU's rows (4
+   schemes x insert/update/delete and continuity's resize cell), and the
+   baselines' one-step resize on the card equal to the CPU's; (e) the
+   continuous batcher under ``ExecPolicy(transport="sim")``: its transport
+   counters on the card equal the CPU's.
 4. Paged attention vs plain: the kernel against ``paged_attn_ref`` in
    float32 (2e-5) and bfloat16 (6e-2) on the shapes of
    ``tests/test_kernels.py``, G = 1 and 8, lengths on page boundaries and
@@ -1110,6 +1131,431 @@ def e2e_phase(torch, card) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the continuity store's maintenance and crash-consistency surface
+# ---------------------------------------------------------------------------
+
+SERIAL_B = 2_048               # serial-oracle batches on the full-size table
+SPLIT_SLO_US = 25.0            # begin_resize's stall target (4 cohorts/step)
+SPLIT_STEPS = 300              # bounded online-split steps at full size
+SPLIT_WRITES_EVERY = 10        # a routed write batch every this many steps
+SMALL_SPLIT_BUCKETS = 2 ** 12  # the split run to completion, card vs CPU
+SMALL_SPLIT_LOAD = 0.9         # of its main slots: engages the stash tier
+
+
+def _same_tables(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _ids_to_keys(torch, ycsb, ids):
+    return torch.from_numpy(ycsb.make_key(np.asarray(ids)).view(
+        np.int32)).cuda()
+
+
+def _serial_vs_wave(torch, ch, cfg, table, op, keys, vals):
+    """The serial oracle and the wave engine on twin clones of ``table``:
+    every field, ok and the ledger must be equal.  Returns (µs per op of
+    the oracle, committed ops)."""
+    ts, tw = _clone(table), _clone(table)
+    args = (keys,) if op == "delete" else (keys, vals)
+    (_, oks, ls), t = _timed(
+        torch, lambda: getattr(ch, f"{op}_serial")(cfg, ts, *args))
+    _, okw, lw = getattr(ch, op)(cfg, tw, *args)
+    _check(_same_tables(torch, ts, tw) and torch.equal(oks, okw)
+           and [int(x) for x in ls] == [int(x) for x in lw],
+           f"{op}_serial equals the wave engine in every field, ok and "
+           f"the ledger")
+    return t / keys.shape[0] * 1e6, int(oks.sum())
+
+
+def _serial_small_stash(torch, ch, convert, ycsb) -> str:
+    """The oracles on a small table whose inserts spill into the stash:
+    card serial == card wave == CPU serial, for each op."""
+    cfg = ch.ContinuityConfig(num_buckets=32, ext_frac=1.0, stash_frac=1 / 8)
+    rng = np.random.RandomState(SEED + 31)
+    out, stashed = [], {}
+    for op in ("insert", "update", "delete"):
+        n_base = 192 if op == "insert" else 448
+        kb, vb = ycsb.make_key(np.arange(n_base)), ycsb.make_value(rng, n_base)
+        start = n_base - 64 if op == "insert" else 0
+        ids = np.arange(start, start + 512)
+        ids[-64:] = start + rng.randint(0, 256, 64)
+        K, V = ycsb.make_key(ids), ycsb.make_value(rng, 512)
+        runs = []
+        for dev, serial in (("cpu", True), ("cuda", True), ("cuda", False)):
+            t = ch.create(cfg, dev)
+            ch.insert(cfg, t, kb, vb)
+            fn = getattr(ch, f"{op}_serial" if serial else op)
+            _, ok, led = fn(cfg, t, *((K,) if op == "delete" else (K, V)))
+            runs.append((convert.table_to_numpy(t), ok.cpu().numpy(),
+                         [int(x) for x in led]))
+        (tc, okc, lc), *rest = runs
+        for tg, okg, lg in rest:
+            _check(all(np.array_equal(tc[f], tg[f]) for f in tc)
+                   and np.array_equal(okc, okg) and lc == lg,
+                   f"small stash table: {op} on the card equals the CPU")
+        stashed[op] = int((tc["stash_meta"] != 0).sum())
+        out.append(f"{op} {int(okc.sum())} ok, stash {stashed[op]}")
+    _check(stashed["insert"] > 0, "the small table engaged its stash")
+    return "; ".join(out)
+
+
+def _small_split(torch, api, convert, ycsb, dev):
+    """The online split to completion on a small stash table."""
+    store = api.make_store("continuity", num_buckets=SMALL_SPLIT_BUCKETS,
+                           stash_frac=1 / 8, device=dev)
+    cfg = store.cfg
+    n = int(SMALL_SPLIT_LOAD * cfg.num_pairs * cfg.slots_per_pair)
+    K = ycsb.make_key(np.arange(n))
+    V = ycsb.make_value(np.random.RandomState(SEED + 32), n)
+    t, _ = store.insert(store.create(), K, V)
+    stash = int((t.stash_meta != 0).sum())
+    pre = convert.table_to_numpy(t)
+
+    def run():
+        rs = store.begin_resize(t)
+        while not rs.done:
+            rs = store.resize_step(rs, budget=64)
+        return rs, store.resize_cutover(rs)
+    if dev == "cuda":
+        (rs, (_, nt)), sec = _timed(torch, run)
+    else:
+        t0 = time.perf_counter()
+        rs, (_, nt) = run()
+        sec = time.perf_counter() - t0
+    return (pre, convert.table_to_numpy(t), convert.table_to_numpy(nt),
+            rs.moved, rs.n_items, stash, sec, cfg)
+
+
+def _split_full(torch, api, ch, ycsb, store, table, keys, vals, ok, card):
+    """(c) at full size: a bounded online split interleaved with routed
+    writes and dual reads, checked against a host oracle.  Returns the
+    resize state."""
+    from repro_torch.rdma.transport import LinkModel
+    cfg = store.cfg
+    rng = np.random.RandomState(SEED + 33)
+    rs = store.begin_resize(table, step_slo_us=SPLIT_SLO_US)
+    budget = rs.step_budget
+    limit = budget * SPLIT_STEPS                      # pairs that will move
+    pair_all = ch.locate(cfg, keys)[0]
+    near = (pair_all < limit).nonzero().squeeze(1).cpu().numpy()
+    del pair_all
+    fresh = N_RECORDS + np.arange(2 ** 20)
+    fpair = ch.locate(cfg, _ids_to_keys(torch, ycsb, fresh))[0].cpu().numpy()
+    fresh_near, fresh_far = fresh[fpair < limit], fresh[fpair >= limit]
+    cur = vals.clone()                  # the value each record holds now
+    live = ok.clone()
+    fresh_ok = {}                       # acknowledged fresh inserts
+    n_ins = n_del = 0
+    step_ms = []
+    for step in range(SPLIT_STEPS):
+        if step % SPLIT_WRITES_EVERY == 0:
+            far = rng.randint(0, N_RECORDS, 64)
+            ids = np.unique(np.concatenate([rng.choice(near, 64), far]))
+            rng.shuffle(ids)
+            upd, dels = ids[: len(ids) // 2], ids[len(ids) // 2:]
+            nv = ycsb.make_value(rng, len(upd))
+            rs, r = store.resize_write(rs, "update",
+                                       _ids_to_keys(torch, ycsb, upd), nv)
+            sel = torch.from_numpy(upd).cuda()[r.ok]
+            cur[sel] = torch.from_numpy(nv.view(np.int32)).cuda()[r.ok]
+            rs, r = store.resize_write(rs, "delete",
+                                       _ids_to_keys(torch, ycsb, dels))
+            live[torch.from_numpy(dels).cuda()[r.ok]] = False
+            n_del += int(r.ok.sum())
+            ins = np.concatenate([fresh_near[:16], fresh_far[:16]])
+            fresh_near, fresh_far = fresh_near[16:], fresh_far[16:]
+            iv = ycsb.make_value(rng, len(ins))
+            rs, r = store.resize_write(rs, "insert",
+                                       _ids_to_keys(torch, ycsb, ins), iv)
+            for i, v, o in zip(ins, iv, r.ok.cpu().numpy()):
+                if o:
+                    fresh_ok[int(i)] = v
+            n_ins += int(r.ok.sum())
+        rs, t = _timed(torch, lambda: store.resize_step(rs))
+        step_ms.append(t * 1e3)
+        if step % SPLIT_WRITES_EVERY == SPLIT_WRITES_EVERY - 1:
+            probe_ids = np.concatenate([rng.choice(near, 256),
+                                        rng.randint(0, N_RECORDS, 256)])
+            lk = store.resize_lookup(rs, _ids_to_keys(torch, ycsb,
+                                                      probe_ids))
+            pi = torch.from_numpy(probe_ids).cuda()
+            _check(torch.equal(lk.ok, live[pi]) and torch.equal(
+                lk.values[lk.ok], cur[pi][lk.ok]),
+                "mid-split dual reads find every live record with its "
+                "current value and no deleted one")
+    moved_pairs = rs.opaque.next_pair
+    _check(moved_pairs == budget * SPLIT_STEPS, "each step moved its budget")
+    # every record of a moved cohort: in the new table only, as the oracle
+    kk = _ids_to_keys(torch, ycsb, near)
+    pairs = ch.locate(cfg, kk)[0]
+    moved = (pairs < moved_pairs).cpu().numpy()
+    mk_ids, kk = near[moved], kk[torch.from_numpy(moved).cuda()]
+    mi = torch.from_numpy(mk_ids).cuda()
+    lk = store.resize_lookup(rs, kk)
+    _check(torch.equal(lk.ok, live[mi]) and torch.equal(
+        lk.values[lk.ok], cur[mi][lk.ok]),
+        "every record of a moved cohort reads back as the oracle says")
+    _check(not bool(ch.lookup(cfg, rs.table, kk).found.any()),
+           "no moved record is left in the source table (no duplicate)")
+    nstore = rs.new_store
+    _check(torch.equal(nstore.lookup(rs.new_table, kk).ok, live[mi]),
+           "the grown table holds exactly the live moved records")
+    fids = np.asarray(sorted(fresh_ok))
+    lk = store.resize_lookup(rs, _ids_to_keys(torch, ycsb, fids))
+    want = torch.from_numpy(np.stack([fresh_ok[int(i)] for i in fids])
+                            .view(np.int32)).cuda()
+    _check(bool(lk.ok.all()) and torch.equal(lk.values, want),
+           "every acknowledged insert during the split reads back")
+    total = int(rs.table.count) + int(rs.new_table.count)
+    _check(total == rs.n_items + n_ins - n_del,
+           "nothing lost or duplicated: source + grown counts equal the "
+           "records at begin + inserts - deletes")
+    pred = LinkModel().cohort_move_us(
+        read_bytes=float(cfg.row_bytes),
+        write_bytes=float(cfg.row_bytes + 16)) * budget
+    print(f"phase 3e (c): online split at full size, {SPLIT_STEPS} steps of "
+          f"{budget} cohorts (step_slo_us {SPLIT_SLO_US}), {moved_pairs} of "
+          f"{cfg.num_pairs} pairs moved ({rs.moved} records), routed writes "
+          f"every {SPLIT_WRITES_EVERY} steps ({n_ins} inserts, {n_del} "
+          f"deletes acknowledged), dual reads exact, {len(mk_ids)} moved "
+          f"records checked; ms per step median "
+          f"{float(np.median(step_ms)):.4f} (min {min(step_ms):.4f}, max "
+          f"{max(step_ms):.4f}) = "
+          f"{float(np.median(step_ms)) * 1e3 / budget:.2f} us per cohort on "
+          f"the card, against LinkModel.cohort_move_us {pred:.4f} us per "
+          f"step ({pred / budget:.4f} per cohort, a model of the RDMA + PM "
+          f"stall, not a card time) [{card}]", flush=True)
+    return rs
+
+
+def _in_situ_segments(torch, run):
+    """``run()`` with every segment-probe and mutation-plan kernel call
+    also computed by its plain version on the same operands, right after
+    the launch and before the caller reads the result (which goes on).
+    Fails on the first difference.  Returns ``(run's result, checks)``:
+    per kernel the calls checked, their batch sizes and table pairs, and
+    the largest absolute difference.  The plain versions launch no
+    kernel, so the launch counts stay the path's own."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.mutate_ref import mutate_ref
+    from repro_torch.kernels.probe_ref import probe_ref
+    checks = {name: {"calls": 0, "batches": set(), "pairs": set(),
+                     "max_abs_err": 0}
+              for name in ("probe_segments", "mutate_segments")}
+
+    def checked(name, kern, plain):
+        def call(rows, *args):
+            out = kern(rows, *args)
+            c = checks[name]
+            for g, w in zip(out, plain(rows, *args)):
+                d = (g.to(torch.int64) - w.to(torch.int64)).abs()
+                c["max_abs_err"] = max(c["max_abs_err"],
+                                       int(d.max()) if d.numel() else 0)
+                _check(torch.equal(g, w), f"{name} equals its plain version "
+                       f"on the maintenance path (B={g.shape[0]}, "
+                       f"{rows.shape[0]} pairs)")
+            c["calls"] += 1
+            c["batches"].add(int(args[4].shape[0]))     # qkeys / pairs
+            c["pairs"].add(int(rows.shape[0]))
+            return out
+        return call
+    saved = K.probe_segments, K.mutate_segments
+    K.probe_segments = checked("probe_segments", saved[0], probe_ref)
+    K.mutate_segments = checked("mutate_segments", saved[1], mutate_ref)
+    try:
+        return run(), checks
+    finally:
+        K.probe_segments, K.mutate_segments = saved
+
+
+def maintenance_phase(torch, api, ch, ycsb, keys, vals, card) -> tuple:
+    """Phase 3e, with every store-kernel call held in place against its
+    plain version; returns (its kernels' launch counts, set to 0 before;
+    the in-place checks)."""
+    from repro_torch.kernels import mutate, probe, scan_walk
+    probe.probe_segments.launches = 0
+    mutate.mutate_segments.launches = 0
+    scan_walk.scan_walk.launches = 0
+    _, checks = _in_situ_segments(torch, lambda: _maintenance(
+        torch, api, ch, ycsb, keys, vals, card))
+    launches = {"probe_segments": probe.probe_segments.launches,
+                "mutate_segments": mutate.mutate_segments.launches,
+                "scan_walk": scan_walk.scan_walk.launches}
+    for name, n in launches.items():
+        _check(n > 0, f"the maintenance path launched {name}")
+    for name, c in checks.items():
+        _check(c["calls"] == launches[name] > 0, f"every {name} launch of "
+               f"the maintenance path was held against its plain version")
+        print(f"phase 3e: {name} held against its plain version at each of "
+              f"its {c['calls']} launches on this path, batches "
+              f"{sorted(c['batches'])}, tables of {sorted(c['pairs'])} "
+              f"pairs, max_abs_err {c['max_abs_err']} [{card}]", flush=True)
+    return launches, checks
+
+
+def _maintenance(torch, api, ch, ycsb, keys, vals, card) -> None:
+    """The work of phase 3e, (a)-(d)."""
+    from repro_torch import convert
+    from repro_torch.consistency import matrix
+    from repro_torch.core.words import u32
+    store = api.make_store("continuity", num_buckets=NUM_BUCKETS,
+                           stash_frac=0.0, device="cuda")
+    cfg = store.cfg
+    table = store.create()
+    results, t_load = _timed(torch, lambda: _load(store, table, keys, vals))
+    ok = torch.cat([r.ok for r in results])
+    n_ok = int(ok.sum())
+    print(f"phase 3e: full-size table loaded ({n_ok} of {N_RECORDS} items "
+          f"in {t_load:.3f} s)", flush=True)
+
+    # -- (a) the serial oracles against the wave engine -----------------
+    rng = np.random.RandomState(SEED + 30)
+    zipf = ycsb.Zipf(N_RECORDS)
+    batches = {
+        "insert": (N_RECORDS + np.arange(SERIAL_B),
+                   N_RECORDS + zipf.sample(rng, SERIAL_B) % 1024),
+        "update": (rng.choice(N_RECORDS, SERIAL_B, replace=False),
+                   zipf.sample(rng, SERIAL_B)),
+        "delete": (rng.choice(N_RECORDS, SERIAL_B, replace=False),
+                   zipf.sample(rng, SERIAL_B)),
+    }
+    lines = []
+    for op, pair_of_batches in batches.items():
+        for kind, ids in zip(("distinct", "zipf"), pair_of_batches):
+            k = _ids_to_keys(torch, ycsb, ids)
+            v = torch.from_numpy(ycsb.make_value(rng, SERIAL_B).view(
+                np.int32)).cuda()
+            us, n = _serial_vs_wave(torch, ch, cfg, table, op, k, v)
+            lines.append(f"{op} {kind} ({len(np.unique(ids))} distinct "
+                         f"keys, {n} ok) {us:.2f} us/op")
+    print(f"phase 3e (a): serial oracles equal the wave engine on twin "
+          f"clones of the full-size table (every field, ok, ledger), "
+          f"batches of {SERIAL_B}: {'; '.join(lines)} [{card}]", flush=True)
+    print(f"phase 3e (a): small stash table, card serial == card wave == "
+          f"CPU serial: {_serial_small_stash(torch, ch, convert, ycsb)}",
+          flush=True)
+
+    # -- (b) the batched resize at full size -----------------------------
+    vmax = int(u32(table.version).max())
+    (new_cfg, grown), t_rs = _timed(torch, lambda: ch.resize(cfg, table))
+    _check(int(grown.count) == int(table.count) == n_ok,
+           "resize keeps the count")
+    _check(int(u32(grown.version).min()) > vmax,
+           "every new version is above the old unsigned maximum")
+    gstore = api.make_store("continuity", num_buckets=new_cfg.num_buckets,
+                            stash_frac=0.0, device="cuda")
+    _check(gstore.cfg == new_cfg, "the grown store has the resized geometry")
+
+    def readback():
+        hit = 0
+        for s in range(0, N_RECORDS, READ_BATCH):
+            res = gstore.lookup(grown, keys[s:s + READ_BATCH])
+            o = ok[s:s + READ_BATCH]
+            _check(torch.equal(res.ok, o) and torch.equal(
+                res.values[o], vals[s:s + READ_BATCH][o]),
+                "every record reads back from the grown table")
+            hit += int(res.ok.sum())
+        return hit
+    hit, t_read = _timed(torch, readback)
+    more = sum(x.numel() * x.element_size() for x in grown) - sum(
+        x.numel() * x.element_size() for x in table)
+    print(f"phase 3e (b): resize {cfg.num_buckets} -> {new_cfg.num_buckets} "
+          f"buckets in {t_rs:.3f} s = {n_ok / t_rs:.0f} items/s "
+          f"({more / 2 ** 30:.3f} GiB more), "
+          f"{hit} of {N_RECORDS} keys read back with their values through "
+          f"the probe kernel in {t_read:.3f} s (each launch checked against "
+          f"the plain version in that time), count unchanged, versions "
+          f"above {vmax} [{card}]", flush=True)
+    del grown
+    torch.cuda.empty_cache()
+
+    # -- (c) the online split: bounded at full size, then to completion --
+    rs = _split_full(torch, api, ch, ycsb, store, table, keys, vals, ok, card)
+    del rs, table
+    torch.cuda.empty_cache()
+    gpu = _small_split(torch, api, convert, ycsb, "cuda")
+    cpu = _small_split(torch, api, convert, ycsb, "cpu")
+    _check(all(np.array_equal(a[f], b[f]) for a, b in zip(gpu[:3], cpu[:3])
+               for f in a), "the small split on the card equals the CPU's "
+           "byte for byte (source, drained source, grown table)")
+    _check(gpu[3] == gpu[4] == cpu[3] and gpu[5] > 0,
+           "moved == n_items, with the stash engaged")
+    print(f"phase 3e (c): split to completion + cutover, "
+          f"{SMALL_SPLIT_BUCKETS} buckets at load {SMALL_SPLIT_LOAD} (stash "
+          f"1/8, {gpu[5]} stash entries), {gpu[3]} of {gpu[4]} records "
+          f"moved over {gpu[7].num_pairs} cohorts: card {gpu[6]:.3f} s, CPU "
+          f"{cpu[6]:.3f} s, tables byte-equal [{card}]", flush=True)
+
+    # -- (d) crash consistency: the matrix and the baselines' resize -----
+    rows_gpu, t_mat = _timed(torch, lambda: matrix.run_rows(device="cuda"))
+    rows_cpu = matrix.run_rows(device="cpu")
+    _check(rows_gpu == rows_cpu, "every crash-matrix row on the card "
+           "equals the CPU's")
+    _check(all(r["ok"] for r in rows_gpu), "every cell meets its expectation")
+    cont = [r for r in rows_gpu if r["scheme"] == "continuity"]
+    _check(all(r["log_used_points"] == 0 and r["trace_log_records"] == 0
+               for r in cont), "continuity recovers with zero log records")
+    K = ycsb.make_key(np.arange(600))
+    V = ycsb.make_value(np.random.RandomState(SEED + 34), 600)
+    for scheme in ("level", "pfarm", "dense"):
+        out = []
+        for dev in ("cpu", "cuda"):
+            st = api.make_store(scheme, table_slots=1000, device=dev)
+            t, _ = st.insert(st.create(), K, V)
+            _, nt = st.resize_cutover(st.begin_resize(t))
+            out.append(getattr(convert, f"{scheme}_table_to_numpy")(nt))
+        _check(all(np.array_equal(out[0][f], out[1][f]) for f in out[0]),
+               f"{scheme}'s one-step resize on the card equals the CPU's")
+    print(f"phase 3e (d): crash matrix on the card equals the CPU row for "
+          f"row ({len(rows_gpu)} cells, "
+          f"{sum(r['crash_points'] for r in rows_gpu)} crash states, "
+          f"{t_mat:.3f} s): " + "; ".join(
+              f"{r['scheme']}/{r['op']} {r['crash_points']}/"
+              f"{r['torn_points']}/{r['violations']}/{r['log_used_points']}/"
+              f"{r['recovery']['duplicates_cleared']} "
+              f"{'PASS' if r['ok'] else 'FAIL'}" for r in rows_gpu)
+          + "; level, pfarm and dense one-step resize card == CPU", flush=True)
+
+
+def sim_batcher_check(torch, card) -> None:
+    """(e): the batcher under ``ExecPolicy(transport="sim")`` posts the
+    same plans on the card as on the CPU."""
+    from repro_torch.api import ExecPolicy
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.serving import kvcache as KC
+    from repro_torch.serving.scheduler import ContinuousBatcher, Request
+    cfg = smoke_config("yi-6b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(SEED))
+    stats = []
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items() if k != "blocks"}
+        p["blocks"] = {k: v.to(dev) for k, v in params["blocks"].items()}
+        geom = KC.make_geometry(cfg, ShapeConfig("s", seq_len=128,
+                                                 global_batch=4,
+                                                 kind="decode"),
+                                shards=2, page_size=16,
+                                policy=ExecPolicy(transport="sim"),
+                                device=dev)
+        b = ContinuousBatcher(cfg, geom, p)
+        rng = np.random.RandomState(SEED + 35)
+        for rid in range(7):
+            b.submit(Request(rid=rid, prompt=rng.randint(
+                0, cfg.vocab, size=int(rng.randint(3, 10))).astype(np.int32),
+                max_new_tokens=4 + rid % 3))
+        b.run(max_steps=300)
+        stats.append(b.transport.stats())
+    _check(stats[0] == stats[1] and stats[0]["posts"] > 0,
+           "the batcher's sim transport counters on the card equal the CPU's")
+    s = stats[1]
+    print(f"phase 3e (e): batcher under ExecPolicy(transport='sim'): "
+          f"{s['posts']} posts, {s['doorbells']} doorbells, {s['verbs']} "
+          f"verbs, {s['bytes']} bytes, {s['simulated_us']:.3f} simulated us "
+          f"(LinkModel), card == CPU [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the paged-attention kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -1714,13 +2160,22 @@ def main() -> int:
     table1_report(cont, base, card)
     print(f"baselines path: {time.perf_counter() - t0:.1f} s, scan_walk "
           f"launches {walk_launches} [{card}]", flush=True)
-    del keys, vals
     torch.cuda.empty_cache()
 
     # -- phase 3d: the end-to-end simulator, its launches counted --------
     t0 = time.perf_counter()
     e2e_phase(torch, card)
     print(f"end-to-end path: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 3e: maintenance and crash consistency, launches counted ---
+    t0 = time.perf_counter()
+    m_launches, m_checks = maintenance_phase(torch, api, ch, ycsb, keys,
+                                             vals, card)
+    del keys, vals
+    torch.cuda.empty_cache()
+    sim_batcher_check(torch, card)
+    print(f"maintenance path: {time.perf_counter() - t0:.1f} s, kernel "
+          f"launches {m_launches} [{card}]", flush=True)
     walk_err = max([walk_err] + [t[2] for t in walk_timing.values()])
     ins, floor = walk_timing["level"][0]["insert"], walk_timing["level"][1]
     # latency_floor_ms: WALK_B dependent trips at the warm token chase's
@@ -1751,6 +2206,9 @@ def main() -> int:
     launches["scan_walk"] = walk_launches
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] in m_checks:      # phase 3e's in-place comparisons
+            r["max_abs_err"] = max(r["max_abs_err"],
+                                   m_checks[r["name"]]["max_abs_err"])
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -12,31 +12,40 @@ on.  Write ops update the table in place and return it.
   * ``dense``  — the dense block-table reference.
 
 Factories size the table to ``table_slots`` storage units as the
-reference's do, so cross-scheme numbers compare at equal capacity.  Resize
-and the crash-consistency surface are not ported yet: those methods raise
-``NotImplementedError`` naming the ROADMAP item.
+reference's do, so cross-scheme numbers compare at equal capacity.
+
+Every store also carries the maintenance protocol (``begin_resize`` /
+``resize_step`` / ``resize_cutover``; continuity's is a cohort-at-a-time
+online split) and the crash-consistency surface (``trace_*`` /
+``recover``, through `repro_torch.consistency`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, ClassVar, Tuple
+import warnings
+from typing import Any, ClassVar, Optional, Tuple
 
 import torch
 
-from repro_torch.api.types import ExecPolicy, OpResult
+from repro_torch.api.types import ExecPolicy, OpResult, ResizeState
 from repro_torch.core import continuity as ch
 from repro_torch.core import dense as dn
 from repro_torch.core import level as lv
 from repro_torch.core import pfarm as pf
 from repro_torch.core.continuity import KEY_LANES, VAL_LANES
+from repro_torch.core.words import as_words
 from repro_torch.rdma import verbs as rv
 
-_RESIZE = ("resize is not ported yet: ROADMAP.md Queue 1, item 5 (resize / "
-           "split)")
-_CRASH = ("the crash-consistency surface is not ported yet: ROADMAP.md "
-          "Queue 1, item 8")
+
+def _check_resize_lossless(name: str, old_table, new_table) -> None:
+    lost = int(old_table.count) - int(new_table.count)
+    if lost:
+        raise RuntimeError(
+            f"resize dropped {lost} live item(s) from the {name!r} store "
+            f"({int(old_table.count)} -> {int(new_table.count)}); grow by a "
+            f"larger factor or rehash manually")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,30 +137,81 @@ class _ModuleStore:
             "load_factor": float(self.load_factor(table)),
         }
 
-    # -- surfaces not ported yet ---------------------------------------------
-    def begin_resize(self, table, factor: int = 2, step_slo_us=None):
-        raise NotImplementedError(_RESIZE)
+    # -- incremental maintenance surface ------------------------------------
+    # The generic implementation completes the whole rehash in the FIRST
+    # step (a stop-the-world move is all the scattered baselines can offer:
+    # their candidate buckets change wholesale at the new size); continuity
+    # overrides the triple with a real cohort-at-a-time split.
 
-    def resize_step(self, state, budget=None):
-        raise NotImplementedError(_RESIZE)
+    def begin_resize(self, table, factor: int = 2,
+                     step_slo_us: Optional[float] = None) -> ResizeState:
+        # the baselines cannot increment (their first step moves
+        # everything), so a stall SLO is accepted and unsatisfiable
+        new = dataclasses.replace(self, cfg=self.cfg.grow(factor))
+        return ResizeState(store=self, new_store=new, table=table,
+                           new_table=new.create(), factor=factor,
+                           n_items=int(table.count))
 
-    def resize_cutover(self, state):
-        raise NotImplementedError(_RESIZE)
+    def resize_step(self, state: ResizeState,
+                    budget: Optional[int] = None) -> ResizeState:
+        if state.done:
+            return state
+        # into a fresh grown table, not ``state.new_table``: the port's
+        # inserts update their table in place, so a step replayed from the
+        # begin handle would otherwise insert every item a second time
+        keys, vals, live = self._extract(state.table)
+        new_table, _ = state.new_store.insert(state.new_store.create(), keys,
+                                              vals, live)
+        return dataclasses.replace(state, new_table=new_table, done=True,
+                                   moved=int(live.sum()))
 
-    def resize(self, table, factor: int = 2):
-        raise NotImplementedError(_RESIZE)
+    def resize_cutover(self, state: ResizeState) -> Tuple["_ModuleStore", Any]:
+        """Finish any remaining steps and hand over the grown store.
+
+        Raises if any live item failed to reinsert (possible for the
+        bucketed baselines when candidate buckets collide even at the
+        larger size) instead of dropping it."""
+        while not state.done:
+            state = self.resize_step(state, budget=1 << 30)
+        _check_resize_lossless(self.name, state.table, state.new_table)
+        return state.new_store, state.new_table
+
+    def resize(self, table, factor: int = 2) -> Tuple["_ModuleStore", Any]:
+        """DEPRECATED one-shot resize: begin + step-to-completion + cutover.
+
+        New code drives ``begin_resize``/``resize_step`` from its
+        maintenance loop and ``resize_cutover`` when the split has
+        drained."""
+        warnings.warn(
+            "HashStore.resize() is deprecated; use begin_resize()/"
+            "resize_step()/resize_cutover()", DeprecationWarning,
+            stacklevel=2)
+        return self.resize_cutover(self.begin_resize(table, factor))
+
+    # -- crash-consistency surface (repro_torch.consistency) ----------------
+    # Traced twins of the write ops: the same table update (in place) and
+    # ok flags, plus the ordered PM store trace the crash injector replays.
+    # ``recover`` is the scheme's restart procedure; it accepts a table or
+    # a crash-injected state (`CrashState.state`) and returns a new table.
 
     def trace_insert(self, table, keys, vals, mask=None):
-        raise NotImplementedError(_CRASH)
+        from repro_torch import consistency
+        return consistency.trace_store_op(self, table, "insert", keys, vals,
+                                          mask)
 
     def trace_update(self, table, keys, vals, mask=None):
-        raise NotImplementedError(_CRASH)
+        from repro_torch import consistency
+        return consistency.trace_store_op(self, table, "update", keys, vals,
+                                          mask)
 
     def trace_delete(self, table, keys, mask=None):
-        raise NotImplementedError(_CRASH)
+        from repro_torch import consistency
+        return consistency.trace_store_op(self, table, "delete", keys, None,
+                                          mask)
 
     def recover(self, table_or_state):
-        raise NotImplementedError(_CRASH)
+        from repro_torch import consistency
+        return consistency.recover_store(self, table_or_state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,7 +223,7 @@ class ContinuityStore(_ModuleStore):
     version, ``gather`` -> ``continuity.lookup``; fingerprint pre-filter
     per ``policy.use_fp``.  ``policy.mutate`` picks the match backend of
     the fused update/delete the same way.  ``policy.engine="serial"``
-    raises: the serial oracles are not ported yet."""
+    runs the serial oracles (one op at a time, byte-identical)."""
 
     cfg: ch.ContinuityConfig = ch.ContinuityConfig(num_buckets=256)
     name: ClassVar[str] = "continuity"
@@ -172,23 +232,17 @@ class ContinuityStore(_ModuleStore):
     def _mod(self):
         return ch
 
-    def _check_engine(self):
-        if self.policy.engine == "serial":
-            raise NotImplementedError(
-                "engine='serial' needs the serial oracles (insert_serial/"
-                "update_serial/delete_serial), not yet ported: ROADMAP.md "
-                "Queue 1, item 3")
-
     def _insert_fn(self):
-        self._check_engine()
-        return ch.insert
+        return ch.insert_serial if self.policy.engine == "serial" else ch.insert
 
     def _update_fn(self):
-        self._check_engine()
+        if self.policy.engine == "serial":
+            return ch.update_serial
         return functools.partial(ch.update, probe=self.policy.mutate)
 
     def _delete_fn(self):
-        self._check_engine()
+        if self.policy.engine == "serial":
+            return ch.delete_serial
         return functools.partial(ch.delete, probe=self.policy.mutate)
 
     def _lookup_res(self, table, keys):
@@ -199,10 +253,89 @@ class ContinuityStore(_ModuleStore):
                               use_kernel=self.policy.probe == "kernel",
                               use_fp=self.policy.use_fp)
 
+    def _extract(self, table):
+        return ch.extract_items(self.cfg, table)
+
     def version_stamp(self, table, keys) -> torch.Tensor:
         """(B, 2) ``[version, indicator]`` of each key's pair: the ONE
         8-byte word every committed mutation on the pair rewrites."""
         return ch.version_stamp(self.cfg, table, keys)
+
+    def begin_resize(self, table, factor: int = 2,
+                     step_slo_us: Optional[float] = None) -> ResizeState:
+        # the paper's log-free resize as an ONLINE split: per-pair cutover
+        # tokens route traffic while cohorts move one at a time
+        new_cfg, new_table, split = ch.split_begin(self.cfg, table, factor)
+        step_budget = None
+        if step_slo_us is not None:
+            # cohorts per step = how many single-cohort moves fit in the
+            # stall budget under the LinkModel (each reads one source row
+            # and writes its items, words and the cutover token); >= 1
+            from repro_torch.rdma.transport import LinkModel
+            per = LinkModel().cohort_move_us(
+                read_bytes=float(self.cfg.row_bytes),
+                write_bytes=float(self.cfg.row_bytes + 16))
+            step_budget = max(1, int(step_slo_us / per))
+        return ResizeState(
+            store=self, new_store=dataclasses.replace(self, cfg=new_cfg),
+            table=table, new_table=new_table, factor=factor, opaque=split,
+            n_items=int(table.count), step_budget=step_budget)
+
+    def resize_step(self, state: ResizeState,
+                    budget: Optional[int] = None) -> ResizeState:
+        if state.done:
+            return state
+        if budget is None:
+            budget = state.step_budget or 1
+        table, new_table, split, moved = ch.split_step(
+            self.cfg, state.table, state.new_store.cfg, state.new_table,
+            state.opaque, budget)
+        return dataclasses.replace(
+            state, table=table, new_table=new_table, opaque=split,
+            moved=state.moved + moved, done=ch.split_done(self.cfg, split))
+
+    def resize_cutover(self, state: ResizeState):
+        while not state.done:
+            state = self.resize_step(state, budget=self.cfg.num_pairs)
+        left = int(state.table.count)
+        if left:
+            raise RuntimeError(
+                f"resize cutover with {left} item(s) still in the source "
+                f"{self.name!r} table — the split did not drain")
+        return state.new_store, state.new_table
+
+    # -- mid-split routing (the maintenance loop's read/write path) ---------
+    def resize_lookup(self, state: ResizeState, keys) -> OpResult:
+        """Dual read during a split: each key reads the table its cohort's
+        cutover token names; the plan and ledger are the source table's
+        lookup plan, as the reference's."""
+        res = ch.split_lookup(self.cfg, state.table, state.new_store.cfg,
+                              state.new_table, state.opaque, keys)
+        plan = ch.lookup_plan(self.cfg, state.table, keys,
+                              ch.lookup(self.cfg, state.table, keys))
+        return OpResult(ok=res.found, ledger=rv.ledger_from_plan(plan),
+                        values=res.values, reads=res.reads, plan=plan)
+
+    def resize_write(self, state: ResizeState, op: str, keys, vals=None,
+                     mask=None) -> Tuple[ResizeState, OpResult]:
+        """Route one write batch by the split tokens: moved cohorts write
+        the new table, unmoved the old (whose items the split will carry
+        over).  Keeps insert-during-split lossless and duplicate-free."""
+        keys = as_words(keys, KEY_LANES, state.opaque.token.device)
+        to_new = ch.split_route(self.cfg, state.opaque, keys)
+        m = (torch.ones_like(to_new) if mask is None else
+             torch.as_tensor(mask, device=to_new.device).reshape(-1).bool())
+        fn = {"insert": self.insert, "update": self.update,
+              "delete": self.delete}[op]
+        nfn = {"insert": state.new_store.insert,
+               "update": state.new_store.update,
+               "delete": state.new_store.delete}[op]
+        args = (keys,) if op == "delete" else (keys, vals)
+        table, r_old = fn(state.table, *args, mask=m & ~to_new)
+        new_table, r_new = nfn(state.new_table, *args, mask=m & to_new)
+        ok = torch.where(to_new, r_new.ok, r_old.ok)
+        return (dataclasses.replace(state, table=table, new_table=new_table),
+                OpResult(ok=ok, ledger=r_old.ledger.merge(r_new.ledger)))
 
     def total_slots(self, table=None) -> float:
         if table is None:

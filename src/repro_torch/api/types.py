@@ -13,6 +13,13 @@ place.  Calling convention:
     res              = store.lookup(table, keys)
     lf               = store.load_factor(table)
     info             = store.stats(table)          # host-side dict
+
+    state            = store.begin_resize(table[, factor, step_slo_us])
+    state            = store.resize_step(state[, budget])
+    store2, table2   = store.resize_cutover(state)
+
+    table, traced    = store.trace_insert(table, keys, vals[, mask])
+    table2, report   = store.recover(table_or_crash_state)
 """
 
 from __future__ import annotations
@@ -29,8 +36,8 @@ PROBES = ("gather", "kernel", "reference")
 MUTATES = ("gather", "kernel", "reference")
 TRANSPORTS = ("none", "sim")
 
-__all__ = ["CostLedger", "ExecPolicy", "HashStore", "OpResult", "ENGINES",
-           "PROBES", "MUTATES", "TRANSPORTS"]
+__all__ = ["CostLedger", "ExecPolicy", "HashStore", "OpResult",
+           "ResizeState", "ENGINES", "PROBES", "MUTATES", "TRANSPORTS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +45,8 @@ class ExecPolicy:
     """Execution strategy, selected at the API boundary.
 
     * ``engine`` — server-side mutation strategy: ``"wave"`` (the fused
-      wave engine) or ``"serial"`` (the reference's scan oracle, not yet
-      ported: continuity raises ``NotImplementedError`` for it).
+      wave engine) or ``"serial"`` (the serial oracles: one op at a time
+      in batch order, byte-identical to the wave engine).
     * ``probe`` — client read strategy: ``"kernel"`` (the segment-probe
       kernel wrapper: the CUDA kernel on a card, its plain version on the
       CPU), ``"reference"`` (the plain version) or ``"gather"`` (the plain
@@ -89,6 +96,40 @@ class OpResult(NamedTuple):
     plan: Optional[Any] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class ResizeState:
+    """Handle of one in-flight incremental resize (begin -> step* -> cutover).
+
+    ``store``/``table`` are the SOURCE geometry and its (draining) state;
+    ``new_store``/``new_table`` the grown target.  ``opaque`` is the
+    scheme's private cursor (continuity: its per-pair cutover-token split
+    state); ``done`` flips when every cohort has moved; ``moved`` counts
+    relocated items and ``n_items`` records the live count at begin (the
+    cutover loss check).  ``step_budget`` is the per-step cohort count the
+    SLO controller chose at begin (``begin_resize(step_slo_us=...)`` sizes
+    it from the `LinkModel` so one step's foreground stall stays under the
+    target; None means the caller passes an explicit budget).
+
+    Each step returns a new handle, but continuity's tables and tokens
+    are updated in place, as every write op of the port is: all handles
+    of one continuity resize name the same live state.  A step replayed
+    from an older handle leaves the tables as they were: continuity's
+    split inserts only the items the grown table does not hold yet (its
+    ``moved`` then counts only what this replay moved), and the generic
+    one-step rehash of the baselines fills a fresh grown table."""
+
+    store: "HashStore"
+    new_store: "HashStore"
+    table: Any
+    new_table: Any
+    factor: int = 2
+    opaque: Any = None
+    done: bool = False
+    n_items: int = 0
+    moved: int = 0
+    step_budget: Optional[int] = None
+
+
 @runtime_checkable
 class HashStore(Protocol):
     """Structural type every registered scheme satisfies."""
@@ -107,6 +148,32 @@ class HashStore(Protocol):
 
     def lookup(self, table: Any, keys) -> OpResult: ...
 
+    # incremental maintenance surface: begin one resize, advance it a
+    # bounded number of cohorts at a time (foreground traffic keeps
+    # flowing between steps), then cut over.  ``resize`` is the deprecated
+    # one-shot shim over the triple.
+    def begin_resize(self, table: Any, factor: int = 2,
+                     step_slo_us: Optional[float] = None) -> ResizeState: ...
+
+    def resize_step(self, state: ResizeState,
+                    budget: Optional[int] = None) -> ResizeState: ...
+
+    def resize_cutover(self, state: ResizeState) -> Tuple["HashStore", Any]: ...
+
+    def resize(self, table: Any, factor: int = 2) -> Tuple["HashStore", Any]: ...
+
     def load_factor(self, table: Any) -> torch.Tensor: ...
 
     def stats(self, table: Any) -> dict: ...
+
+    # crash-consistency surface (`repro_torch.consistency`): traced twins
+    # of the write ops — same (table, result) contract, but the result
+    # carries the ordered PM store trace the crash injector replays — and
+    # the scheme's restart procedure (returns (table, RecoveryReport)).
+    def trace_insert(self, table: Any, keys, vals, mask=None) -> Tuple[Any, Any]: ...
+
+    def trace_update(self, table: Any, keys, vals, mask=None) -> Tuple[Any, Any]: ...
+
+    def trace_delete(self, table: Any, keys, mask=None) -> Tuple[Any, Any]: ...
+
+    def recover(self, table_or_state: Any) -> Tuple[Any, Any]: ...

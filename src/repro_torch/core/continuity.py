@@ -29,8 +29,12 @@ Differences from the reference, by design:
     place of ``.at[...](mode="drop")``.  Set-scatters keep the reference's
     invariant that their indices are pairwise distinct.
 
-Only the wave engine is ported; the serial ``lax.scan`` oracles, resize /
-split and ``insert_parallel`` are not part of this port yet.
+The serial oracles (``insert_serial`` / ``update_serial`` /
+``delete_serial``) replay the reference's ``lax.scan`` one op at a time in
+batch order, as masked tensor writes that never wait for the device.
+Resize (``resize``, ``resize_stepwise``, ``recover``) and the online split
+(``split_begin`` / ``split_step`` / ``split_lookup``) move items with these
+same ops: the grown table is new, the source table is drained in place.
 """
 
 from __future__ import annotations
@@ -277,9 +281,15 @@ def _gather_candidates(cfg: ContinuityConfig, table: ContinuityTable,
     return cand, cand_keys, cand_vals, valid, slot_ok, is_ext, has_ext
 
 
+@functools.lru_cache(maxsize=64)
+def _probe_tensor(cfg: ContinuityConfig, device: torch.device) -> torch.Tensor:
+    """`_probe_order` as an int64 tensor on ``device`` (made once: a copy
+    to the card per call would wait for the device)."""
+    return torch.as_tensor(_probe_order(cfg), device=device).to(I64)
+
+
 def _candidate_keys(cfg, table, pair, parity, ext_allowed):
-    probe = torch.as_tensor(_probe_order(cfg), device=pair.device).to(I64)
-    cand = probe[parity]                             # (B, C)
+    cand = _probe_tensor(cfg, pair.device)[parity]     # (B, C)
     S = cfg.slots_per_pair
     is_ext = cand >= S
     bits = (u32(table.indicator[pair])[:, None] >> cand) & 1
@@ -338,6 +348,11 @@ def lookup(cfg: ContinuityConfig, table: ContinuityTable,
     stash count byte is non-zero and both main and extension missed)."""
     keys = _keys_in(table, keys)
     pair, parity = locate(cfg, keys)
+    return _lookup_at(cfg, table, keys, pair, parity)
+
+
+def _lookup_at(cfg, table, keys, pair, parity) -> LookupResult:
+    """`lookup` of word keys whose home ``(pair, parity)`` is known."""
     f = torch.zeros(keys.shape[0], dtype=torch.bool, device=keys.device)
     cand, ckeys, cvals, valid, _, is_ext, has_ext = _gather_candidates(
         cfg, table, pair, parity, ext_allowed=f)
@@ -419,6 +434,245 @@ def version_read_plan(cfg: ContinuityConfig, table: ContinuityTable, keys):
     return rv.single_read_plan(keys.shape[0], rv.REGION_TABLE,
                                pair * cfg.row_bytes, INDICATOR_BYTES,
                                keys.device)
+
+
+# ---------------------------------------------------------------------------
+# serial oracles — the reference's ``lax.scan`` ops, one op at a time
+# ---------------------------------------------------------------------------
+# Each op runs on (1,)-shaped tensors; a store the reference drops with an
+# out-of-range index (``mode="drop"``) is a masked read-modify-write here,
+# so the loop enqueues its work without waiting for the device.  Phase 1
+# writes the slot payload, phase 2 commits it with ONE indicator-word store.
+
+def _put(dst: torch.Tensor, idx, cond: torch.Tensor, value) -> None:
+    """``dst[idx] = value`` where ``cond``, else unchanged."""
+    old = dst[idx]
+    c = cond.reshape(cond.shape + (1,) * (old.dim() - cond.dim()))
+    if isinstance(value, torch.Tensor):
+        value = value.to(dst.dtype)
+    dst[idx] = torch.where(c, value, old)
+
+
+def _bump(dst: torch.Tensor, idx, cond: torch.Tensor, amount: int) -> None:
+    """``dst[idx] += amount`` where ``cond`` (int32 words wrap)."""
+    dst.index_add_(0, idx, torch.where(cond, amount, 0).to(dst.dtype))
+
+
+def _commit_one(table: ContinuityTable, ok, pair, word) -> None:
+    """Phase 2 of one op: the indicator word and its version half."""
+    _put(table.indicator, pair, ok, to_i32(word))
+    _bump(table.version, pair, ok, 1)
+
+
+def _fp_store_one(cfg, table: ContinuityTable, ok, pair, slot, fpv) -> None:
+    """Set the fp field of main slot (pair, slot) where ``ok``."""
+    w = slot.clamp(max=cfg.slots_per_pair - 1) // _FPW
+    sh = FP_SLOT_BITS * (slot % _FPW)
+    old = u32(table.fp[pair, w])
+    new = (old & ~(FP_MASK << sh)) | ((fpv & FP_MASK) << sh)
+    _put(table.fp, (pair, w), ok, to_i32(new))
+
+
+def _payload_one(cfg, table: ContinuityTable, ok, pair, slot, ext_idx, key,
+                 val) -> None:
+    """Phase 1 of one op: the slot's key and value (main row or its
+    extension group)."""
+    S = cfg.slots_per_pair
+    is_ext = slot >= S
+    main = (pair, slot.clamp(max=S - 1))
+    _put(table.keys, main, ok & ~is_ext, key)
+    _put(table.vals, main, ok & ~is_ext, val)
+    ext = (ext_idx, (slot - S).clamp(min=0))
+    _put(table.ext_keys, ext, ok & is_ext, key)
+    _put(table.ext_vals, ext, ok & is_ext, val)
+
+
+def _stash_index(cfg, table: ContinuityTable, slot) -> torch.Tensor:
+    """Stash row of a lookup's stash hit (``slot - total_bits``), clamped
+    into the region for the lanes that are not one."""
+    return (slot - cfg.total_bits).clamp(0, table.stash_meta.shape[0] - 1)
+
+
+def _home_of(cfg: ContinuityConfig, keys):
+    """``(pair, parity, fingerprint)`` of word keys: what the one-op
+    functions take, computed once per batch by `_scan_op`."""
+    pair, parity = locate(cfg, keys)
+    return pair, parity, fingerprint(keys)
+
+
+def _find_insert_slot(cfg: ContinuityConfig, table: ContinuityTable, key,
+                      home):
+    """First empty candidate slot of ``key`` (paper's directional scan),
+    extension slots allowed if allocated or allocatable.  Returns
+    ``(pair, slot, ok, need_alloc, ext_idx)``, each of shape (1,)."""
+    pair, parity, _ = home
+    if cfg.ext_frac > 0:
+        can_alloc = (table.ext_count < cfg.ext_pool_pairs).reshape(1)
+    else:
+        can_alloc = torch.zeros(1, dtype=torch.bool, device=key.device)
+    cand, _, valid, slot_ok, _, has_ext, eidx = _candidate_keys(
+        cfg, table, pair, parity, can_alloc)
+    empty = ~valid & slot_ok
+    ok = empty.any(-1)
+    slot = _take(cand, _first(empty))
+    need_alloc = ok & (slot >= cfg.slots_per_pair) & ~has_ext
+    ext_idx = torch.where(need_alloc, table.ext_count.to(I64),
+                          eidx.clamp(min=0))
+    return pair, slot, ok, need_alloc, ext_idx
+
+
+def _stash_insert_one(cfg, table: ContinuityTable, key, val, want, pair):
+    """Stash fallback of one insert (``want``: probe failed, op active).
+
+    Record order for crash atomicity: fp count bump (uncounted metadata,
+    may overcount) -> payload -> version bump -> meta word commit.  The 8 B
+    meta word is the atomic commit point.  3 counted PM writes."""
+    free = table.stash_meta == 0
+    sok = want & free.any()
+    sidx = _first(free).reshape(1)
+    fp1 = table.fp.view(-1)
+    _bump(fp1, pair * 2 + 1, sok, _STASH_ONE)
+    _put(table.stash_keys, sidx, sok, key)
+    _put(table.stash_vals, sidx, sok, val)
+    _bump(table.version, pair, sok, 1)
+    _put(table.stash_meta, sidx, sok, to_i32(pair + 1))
+    table.count.add_(sok.sum().to(I32))
+    return table, sok
+
+
+def _insert_one(cfg, table: ContinuityTable, key, val, active, home=None):
+    """One insert: ``(table, ok, pm)``, the table updated in place.
+    ``home``: the key's `_home_of`, computed here when not given."""
+    home = _home_of(cfg, key) if home is None else home
+    pair, slot, ok, need_alloc, ext_idx = _find_insert_slot(cfg, table, key,
+                                                            home)
+    ok = ok & active
+    need_alloc = need_alloc & active
+    # extension allocation is metadata (rebuilt on recovery from ext_map)
+    _put(table.ext_map, pair, need_alloc, ext_idx.to(I32))
+    table.ext_count.add_(need_alloc.sum().to(I32))
+    _payload_one(cfg, table, ok, pair, slot, ext_idx, key, val)
+    # the NEW slot's fingerprint field lands before the commit (main only)
+    _fp_store_one(cfg, table, ok & (slot < cfg.slots_per_pair), pair, slot,
+                  home[2])
+    word = u32(table.indicator[pair]) | torch.where(ok, bit(slot), 0)
+    _commit_one(table, ok, pair, word)
+    table.count.add_(ok.sum().to(I32))
+    pm = torch.where(ok, 2, 0)
+    if cfg.stash_slots:
+        table, sok = _stash_insert_one(cfg, table, key, val, active & ~ok,
+                                       pair)
+        ok = ok | sok
+        pm = pm + torch.where(sok, 3, 0)
+    return table, ok, pm
+
+
+def _delete_one(cfg, table: ContinuityTable, key, active, home=None):
+    """One delete: ``(table, ok, pm)``, the table updated in place."""
+    home = _home_of(cfg, key) if home is None else home
+    res = _lookup_at(cfg, table, key, home[0], home[1])
+    ok = res.found & active
+    pair, slot = res.pair.to(I64), res.slot.to(I64)
+    in_stash = ok & (slot >= cfg.total_bits)
+    okm = ok & ~in_stash
+    safe = slot.clamp(0, cfg.total_bits - 1)
+    word = u32(table.indicator[pair]) & ~torch.where(okm, bit(safe), 0)
+    _commit_one(table, okm, pair, word)
+    pm = torch.where(okm, 1, 0)
+    if cfg.stash_slots:
+        # stash delete: version bump -> meta clear (the atomic commit) ->
+        # fp count decrement (uncounted, AFTER the commit so the count byte
+        # never reads LOW of the true occupancy at any crash prefix)
+        sidx = _stash_index(cfg, table, slot)
+        _bump(table.version, pair, in_stash, 1)
+        _put(table.stash_meta, sidx, in_stash, 0)
+        _bump(table.fp.view(-1), pair * 2 + 1, in_stash, -_STASH_ONE)
+        pm = pm + torch.where(in_stash, 2, 0)
+    table.count.sub_(ok.sum().to(I32))
+    return table, ok, pm
+
+
+def _update_one(cfg, table: ContinuityTable, key, val, active, home=None):
+    """Out-of-place update: both bit flips land in ONE indicator store.
+
+    A key living in the stash relocates into an empty main/SBucket slot
+    (payload -> fp -> indicator commit makes the new copy win by probe
+    priority -> stash meta clear); with no empty candidate the update
+    fails rather than tearing the stash entry in place."""
+    home = _home_of(cfg, key) if home is None else home
+    res = _lookup_at(cfg, table, key, home[0], home[1])
+    found = res.found & active
+    pair, old_slot = res.pair.to(I64), res.slot.to(I64)
+    parity = home[1]
+    no = torch.zeros(1, dtype=torch.bool, device=key.device)
+    cand, _, valid, slot_ok, _, _, _ = _candidate_keys(cfg, table, pair,
+                                                       parity, no)
+    empty = ~valid & slot_ok
+    has_empty = empty.any(-1)
+    new_slot = _take(cand, _first(empty))
+    in_stash = found & (old_slot >= cfg.total_bits)
+    ok = found & has_empty
+    okm = ok & ~in_stash
+    oks = ok & in_stash
+    ext_idx = table.ext_map[pair].to(I64).clamp(min=0)
+    _payload_one(cfg, table, ok, pair, new_slot, ext_idx, key, val)
+    _fp_store_one(cfg, table, ok & (new_slot < cfg.slots_per_pair), pair,
+                  new_slot, home[2])
+    safe_old = old_slot.clamp(0, cfg.total_bits - 1)
+    flip = torch.where(okm, bit(safe_old), 0) | bit(new_slot)
+    word = u32(table.indicator[pair]) ^ torch.where(ok, flip, 0)
+    _commit_one(table, ok, pair, word)
+    pm = torch.where(okm, 2, 0)
+    if cfg.stash_slots:
+        sidx = _stash_index(cfg, table, old_slot)
+        _put(table.stash_meta, sidx, oks, 0)
+        _bump(table.fp.view(-1), pair * 2 + 1, oks, -_STASH_ONE)
+        pm = pm + torch.where(oks, 3, 0)
+    return table, ok, pm
+
+
+def _scan_op(cfg, one_fn, table, keys, vals, active):
+    """Run ``one_fn`` over the batch in batch order; masked-off ops count
+    neither writes nor the ops denominator.  ``(table, ok, ledger)``."""
+    B = keys.shape[0]
+    dev = keys.device
+    ok = torch.zeros(B, dtype=torch.bool, device=dev)
+    pm = torch.zeros((), dtype=I64, device=dev)
+    home = _home_of(cfg, keys)
+    for i in range(B):
+        op = slice(i, i + 1)
+        args = (keys[op],) if vals is None else (keys[op], vals[op])
+        table, okw, pmw = one_fn(cfg, table, *args, active[op],
+                                 tuple(h[op] for h in home))
+        ok[op] = okw
+        pm += pmw.sum()
+    ctr = pmem.CostLedger.zero(dev).add(pm_writes=pm, ops=active.sum())
+    return table, ok, ctr
+
+
+def insert_serial(cfg: ContinuityConfig, table: ContinuityTable, keys, vals,
+                  mask=None):
+    """The reference's serial insert (batch-order deterministic), in
+    place. 2 PM writes/op (3 on the stash-fallback path); the equivalence
+    oracle of the wave engine.  Returns ``(table, ok, ledger)``."""
+    keys, vals, active = batch_words(table.keys.device, keys, vals, mask)
+    return _scan_op(cfg, _insert_one, table, keys, vals, active)
+
+
+def delete_serial(cfg: ContinuityConfig, table: ContinuityTable, keys,
+                  mask=None):
+    """The reference's serial delete, in place. 1 PM write/op (indicator
+    bit clear; 2 for stash entries: version bump + meta clear)."""
+    keys, _, active = batch_words(table.keys.device, keys, mask=mask)
+    return _scan_op(cfg, _delete_one, table, keys, None, active)
+
+
+def update_serial(cfg: ContinuityConfig, table: ContinuityTable, keys, vals,
+                  mask=None):
+    """The reference's serial out-of-place update, in place. 2 PM
+    writes/op (3 when the op relocates a stash entry into the main row)."""
+    keys, vals, active = batch_words(table.keys.device, keys, vals, mask)
+    return _scan_op(cfg, _update_one, table, keys, vals, active)
 
 
 # ---------------------------------------------------------------------------
@@ -1087,3 +1341,235 @@ def update(cfg: ContinuityConfig, table: ContinuityTable, keys, vals,
     ctr = pmem.CostLedger.zero(keys.device).add(pm_writes=pm,
                                                 ops=active.sum())
     return table, ok, ctr
+
+
+# ---------------------------------------------------------------------------
+# parallel (conflict-resolved) insert — one wave of the engine; same-pair
+# duplicates past the first are reported for retry (batch-order priority ==
+# lock order), and extension groups can be granted
+# ---------------------------------------------------------------------------
+
+def insert_parallel(cfg: ContinuityConfig, table: ContinuityTable, keys,
+                    vals, mask=None):
+    """One insert wave, in place: ``(table, ok, retry)``."""
+    keys, vals, active = batch_words(table.keys.device, keys, vals, mask)
+    pair, parity, rank, _ = _plan_waves(cfg, keys, active)
+    table, ok, _, _ = _insert_wave(cfg, table, keys, vals, pair, parity,
+                                   rank == 0)
+    return table, ok, active & ~ok
+
+
+# ---------------------------------------------------------------------------
+# resizing (paper §III-C "Log-free Resizing") + recovery
+# ---------------------------------------------------------------------------
+
+def extract_items(cfg: ContinuityConfig, table: ContinuityTable):
+    """All storage slots as flat ``(keys, vals, live)``: main rows, the
+    extension pool in pool order, then the stash (stash geometries only)."""
+    P, S, E = cfg.num_pairs, cfg.slots_per_pair, cfg.ext_slots
+    PE = cfg.ext_pool_pairs
+    dev = table.keys.device
+    ind = u32(table.indicator)[:, None]
+    mmask = ((ind >> torch.arange(S, device=dev)) & 1) == 1
+    ebits = ((ind >> (S + torch.arange(E, device=dev))) & 1) == 1
+    has = table.ext_map >= 0
+    # pair-order extension validity scattered into pool order
+    pool_mask = torch.zeros((PE, E), dtype=torch.bool, device=dev)
+    pool_mask[table.ext_map[has].to(I64)] = ebits[has]
+    keys = [table.keys.reshape(P * S, KEY_LANES),
+            table.ext_keys.reshape(PE * E, KEY_LANES)]
+    vals = [table.vals.reshape(P * S, VAL_LANES),
+            table.ext_vals.reshape(PE * E, VAL_LANES)]
+    mask = [mmask.reshape(P * S), pool_mask.reshape(PE * E)]
+    if cfg.stash_slots:
+        keys.append(table.stash_keys)
+        vals.append(table.stash_vals)
+        mask.append(table.stash_meta != 0)
+    return torch.cat(keys), torch.cat(vals), torch.cat(mask)
+
+
+def _grown_table(cfg: ContinuityConfig, table: ContinuityTable,
+                 new_cfg: ContinuityConfig) -> ContinuityTable:
+    """Empty ``new_cfg`` table whose versions all start one above the old
+    table's unsigned maximum (mod 2**32, as the reference's uint32 add):
+    stamps cached against the old geometry can then never compare equal
+    to a post-resize stamp."""
+    new = create(new_cfg, table.keys.device)
+    new.version.copy_(to_i32(u32(table.version).max() + 1).expand(
+        new_cfg.num_pairs))
+    return new
+
+
+def resize(cfg: ContinuityConfig, table: ContinuityTable, factor: int = 2,
+           chunk: int = 1 << 22):
+    """Rehash into a table with ``factor``x buckets (the batched path
+    production resizing uses); the old table is left as it was.
+
+    Items go in, in extraction order, as insert batches of up to ``chunk``
+    slots (bounding the engine's temporaries at full size).  The chunks
+    give the table a single batch of every item gives (the reference's
+    one insert) as long as the grown table's extension pool does not run
+    out inside a chunk: the wave engine then equals the serial scan, which
+    a split into chunks does not change.  Where the pool runs out, the
+    wave engine's grant order is not the serial one (ROADMAP.md Queue 3),
+    and a chunked table can differ from the reference's.  A table of at
+    most ``chunk`` slots goes in as one batch.  Returns
+    ``(new_cfg, new_table)``."""
+    new_cfg = cfg.grow(factor)
+    new = _grown_table(cfg, table, new_cfg)
+    keys, vals, mask = extract_items(cfg, table)
+    for s in range(0, keys.shape[0], chunk):
+        insert(new_cfg, new, keys[s:s + chunk], vals[s:s + chunk],
+               mask[s:s + chunk])
+    return new_cfg, new
+
+
+def resize_stepwise(cfg, table, new_cfg, new_table, max_items: int):
+    """Move up to ``max_items`` live items old->new, one at a time, with the
+    paper's ordering: insert into new, commit, then delete from old.  Both
+    tables are updated in place.  Returns ``(old, new, moved)``."""
+    moved = 0
+    one = torch.ones(1, dtype=torch.bool, device=table.keys.device)
+    for _ in range(max_items):
+        keys, vals, mask = extract_items(cfg, table)
+        idx = int(torch.argmax(mask.to(torch.int8)))
+        if not bool(mask[idx]):
+            break
+        k, v = keys[idx:idx + 1], vals[idx:idx + 1]
+        new_table, ok, _ = _insert_one(new_cfg, new_table, k, v, one)
+        table, _, _ = _delete_one(cfg, table, k, one)
+        moved += int(ok.sum())
+    return table, new_table, moved
+
+
+def recover(cfg, old_table, new_cfg, new_table):
+    """Paper §III-C recovery after a restart mid-resize, in place: each
+    item still in the old table is deleted if it already reached the new
+    table, otherwise moved (insert-to-new then delete-from-old)."""
+    keys, vals, mask = extract_items(cfg, old_table)
+    one = torch.ones(1, dtype=torch.bool, device=old_table.keys.device)
+    for i in mask.nonzero().squeeze(1).tolist():
+        k, v = keys[i:i + 1], vals[i:i + 1]
+        if not bool(lookup(new_cfg, new_table, k).found[0]):
+            _insert_one(new_cfg, new_table, k, v, one)
+        _delete_one(cfg, old_table, k, one)
+    return old_table, new_table
+
+
+def items_host(cfg, table) -> dict:
+    """Live items as ``{key bytes: value bytes}`` (the reference's uint32
+    images; tests only)."""
+    keys, vals, mask = extract_items(cfg, table)
+    kn = keys[mask].cpu().numpy().view(np.uint32)
+    vn = vals[mask].cpu().numpy().view(np.uint32)
+    return {k.tobytes(): v.tobytes() for k, v in zip(kn, vn)}
+
+
+# ---------------------------------------------------------------------------
+# incremental split — online resize, one bucket-group cohort per step
+# ---------------------------------------------------------------------------
+# Growing ``num_buckets`` by an even factor keeps a key's bucket parity and
+# maps every item homed at old pair p into a new pair p + k*P (k < factor),
+# so ONE old pair is a closed rehash cohort: copy its items into the new
+# table (insert-if-absent, so a replayed step is idempotent), flip the
+# pair's split token — the commit point that switches routing — then
+# delete the moved items from the old table.  Lookups and writes for a key
+# go to the new table iff ``token[old_pair] != 0``.
+
+class SplitState(NamedTuple):
+    """In-flight incremental resize.  ``token`` is updated in place, like
+    the two tables, so every handle of one split names the same live
+    state; a step replayed from an older handle is idempotent."""
+
+    token: torch.Tensor     # (P_old,) int32 — 1 = cohort cut over
+    next_pair: int          # first pair not yet moved
+
+
+def split_begin(cfg: ContinuityConfig, table: ContinuityTable,
+                factor: int = 2):
+    """Open an incremental split to a ``factor``x table.  Returns
+    ``(new_cfg, new_table, state)``; the old table is untouched."""
+    if factor < 2 or factor % 2:
+        raise ValueError(f"parity-preserving factors only: {factor}")
+    new_cfg = cfg.grow(factor)
+    new = _grown_table(cfg, table, new_cfg)
+    token = torch.zeros(cfg.num_pairs, dtype=I32, device=table.keys.device)
+    return new_cfg, new, SplitState(token=token, next_pair=0)
+
+
+def cohort_items(cfg: ContinuityConfig, table: ContinuityTable, pair: int):
+    """Candidate rows of ONE pair as copies: ``(keys, vals, live)`` over
+    its S main slots, E extension slots and (stash geometries) the T
+    stash entries."""
+    S, E, T = cfg.slots_per_pair, cfg.ext_slots, cfg.stash_slots
+    dev = table.keys.device
+    ind = u32(table.indicator[pair])
+    mmask = ((ind >> torch.arange(S, device=dev)) & 1) == 1
+    eidx = table.ext_map[pair].to(I64)
+    ebits = ((ind >> (S + torch.arange(E, device=dev))) & 1) == 1
+    emask = ebits & (eidx >= 0)
+    safe_e = eidx.clamp(min=0)
+    keys = [table.keys[pair], table.ext_keys[safe_e]]
+    vals = [table.vals[pair], table.ext_vals[safe_e]]
+    mask = [mmask, emask]
+    if T:
+        keys.append(table.stash_keys)
+        vals.append(table.stash_vals)
+        mask.append(table.stash_meta == pair + 1)
+    return torch.cat(keys), torch.cat(vals), torch.cat(mask)
+
+
+def split_step(cfg: ContinuityConfig, table: ContinuityTable,
+               new_cfg: ContinuityConfig, new_table: ContinuityTable,
+               state: SplitState, budget: int = 1):
+    """Move up to ``budget`` cohorts, one insert and one delete batch
+    each (the paper's insert-to-new -> commit -> delete-from-old order,
+    with the token flip as the single routing commit point).  Both tables
+    and the token are updated in place.  Returns ``(table, new_table,
+    state, moved)``."""
+    P = cfg.num_pairs
+    start = state.next_pair
+    stop = min(start + int(budget), P)
+    moved = 0
+    for p in range(start, stop):
+        kc, vc, mc = cohort_items(cfg, table, p)
+        # the live rows only, in row order: the inactive ones change
+        # nothing, and the batch stays small next to the stash's T rows
+        kc, vc = kc[mc], vc[mc]
+        n = kc.shape[0]
+        if n:
+            already = lookup(new_cfg, new_table, kc).found
+            insert(new_cfg, new_table, kc, vc, ~already)   # idempotent copy
+        state.token[p] = 1                                 # cutover
+        if n:
+            delete(cfg, table, kc)                         # cleanup
+        moved += n
+    return table, new_table, state._replace(next_pair=stop), moved
+
+
+def split_done(cfg: ContinuityConfig, state: SplitState) -> bool:
+    return state.next_pair >= cfg.num_pairs
+
+
+def split_route(cfg: ContinuityConfig, state: SplitState, keys):
+    """(B,) bool — True where the key's cohort has cut over (route to new)."""
+    keys = as_words(keys, KEY_LANES, state.token.device)
+    pair, _ = locate(cfg, keys)
+    return state.token[pair] != 0
+
+
+def split_lookup(cfg: ContinuityConfig, table: ContinuityTable,
+                 new_cfg: ContinuityConfig, new_table: ContinuityTable,
+                 state: SplitState, keys) -> LookupResult:
+    """Token-routed dual read during a split: each key consults exactly the
+    table its token names (the copy phase holds items in BOTH tables, but
+    the un-flipped token keeps the old copy authoritative until cutover)."""
+    keys = as_words(keys, KEY_LANES, table.keys.device)
+    cut = split_route(cfg, state, keys)
+    r_old = lookup(cfg, table, keys)
+    r_new = lookup(new_cfg, new_table, keys)
+
+    def pick(a, b):
+        return torch.where(cut.reshape(cut.shape + (1,) * (a.dim() - 1)),
+                           b, a)
+    return LookupResult(*(pick(a, b) for a, b in zip(r_old, r_new)))

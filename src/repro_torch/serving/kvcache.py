@@ -16,9 +16,13 @@ step would move the whole pool); the small per-sequence fields
 replaced, as in the reference.  Word fields (``seq_ids``, keys, values)
 are int32 tensors holding the reference's uint32 bits.
 
+``step_read_plan`` is the verb plan of one decode step's translations
+(what the batcher posts to a simulated transport); ``open_new_pages_traced``
+is the crash-checkable twin of the page allocation.
+
 Not ported yet: ``kv_dtype="int8"`` (``quant_store``/``dequant``), the
-``merged_attn`` decode path, ``open_new_pages_traced``, ``step_read_plan``
-and the recurrent/window caches of the ssm and hybrid families.
+``merged_attn`` decode path and the recurrent/window caches of the ssm and
+hybrid families.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 from repro_torch.api import ExecPolicy, make_store
 from repro_torch.core.words import resolve_device
 from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.rdma import verbs as rv
 
 I32 = torch.int32
 PAGE_SALT = 0xC0FFEE01
@@ -168,6 +173,22 @@ def lookup_pages(g: PageGeometry, table, seq_ids: torch.Tensor) -> torch.Tensor:
     return torch.stack(phys).reshape(DS, Bl, g.max_pages)
 
 
+def step_read_plan(g: PageGeometry, cache: PagedCache):
+    """One decode step's page-translation verb plan, all shards flattened:
+    one one-sided READ per (sequence, logical page) candidate translation,
+    the same keys `lookup_pages` resolves.  The batcher posts it to its
+    transport with ONE doorbell per step (the flush boundary).  The
+    post-step cache is the right input: its table is the one the step's
+    reads resolved against (``commit_token`` only bumps ``seq_lens``).
+    One extra (plan-only) lookup per step, so it is opt-in via the
+    transport."""
+    keys = _translation_keys(g, cache.seq_ids)
+    plans = [g.store.lookup(cache.table[s], keys[s]).plan
+             for s in range(g.shards)]
+    return rv.flatten(rv.VerbPlan(*(torch.stack(leaves)
+                                    for leaves in zip(*plans))))
+
+
 def flat_page_table(g: PageGeometry, page_table: torch.Tensor) -> torch.Tensor:
     """(DS, Bl, MAXP) per-shard page ids -> (B, MAXP) ids into the pool
     viewed as (DS*NPl, ...): shard s's ids are offset by s*NPl, -1 stays
@@ -190,6 +211,14 @@ def _plan_page_allocation(g: PageGeometry, cache: PagedCache,
     return phys.to(I32), keys, page_values(phys)
 
 
+def _open_pages_epilogue(cache: PagedCache, need, phys) -> PagedCache:
+    """Shared epilogue: open the new pages."""
+    return cache._replace(
+        next_free=cache.next_free + need.sum(dim=1).to(I32),
+        cur_page=torch.where(need, phys, cache.cur_page),
+        cur_off=torch.where(need, 0, cache.cur_off).to(I32))
+
+
 def open_new_pages(g: PageGeometry, cache: PagedCache,
                    need: torch.Tensor) -> PagedCache:
     """Allocate a physical page for each sequence with ``need`` set, insert
@@ -198,10 +227,21 @@ def open_new_pages(g: PageGeometry, cache: PagedCache,
     phys, keys, vals = _plan_page_allocation(g, cache, need)
     for s in range(g.shards):
         g.store.insert(cache.table[s], keys[s], vals[s], need[s])
-    return cache._replace(
-        next_free=cache.next_free + need.sum(dim=1).to(I32),
-        cur_page=torch.where(need, phys, cache.cur_page),
-        cur_off=torch.where(need, 0, cache.cur_off).to(I32))
+    return _open_pages_epilogue(cache, need, phys)
+
+
+def open_new_pages_traced(g: PageGeometry, cache: PagedCache,
+                          need: torch.Tensor):
+    """Crash-checkable twin of `open_new_pages`: the same page-table insert
+    per data shard, through ``store.trace_insert`` (the tables updated in
+    place) — returns the updated cache plus one
+    `repro_torch.consistency.TraceResult` per shard, whose PM store trace
+    the crash injector can replay.  A host-level drill path, not the
+    decode hot path."""
+    phys, keys, vals = _plan_page_allocation(g, cache, need)
+    traces = [g.store.trace_insert(cache.table[s], keys[s], vals[s],
+                                   need[s])[1] for s in range(g.shards)]
+    return _open_pages_epilogue(cache, need, phys), traces
 
 
 def advance(g: PageGeometry, cache: PagedCache) -> PagedCache:

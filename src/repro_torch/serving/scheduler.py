@@ -8,10 +8,10 @@ max tokens), releases their pages (atomic indicator-bit deletes), and
 immediately reuses the slots — the standard continuous-batching loop
 (Orca/vLLM), with the continuity hash table as the page index.
 
-The reference can post each step's page translations to a one-sided
-transport model; the port has no transport yet (``rdma/transport.py``,
-ROADMAP.md Queue 1 #7), so ``transport`` must be None, which is what the
-reference's default policy (``transport="none"``) gives.
+Each step's page translations are posted to the batcher's one-sided
+transport, if it has one: ``transport`` given, or built from the page
+table store's policy (``RemoteMemory.from_policy``: an endpoint for
+``ExecPolicy(transport="sim")``, none for the default ``"none"``).
 """
 
 from __future__ import annotations
@@ -41,10 +41,6 @@ class Request:
 class ContinuousBatcher:
     def __init__(self, cfg: ModelConfig, geom: KC.PageGeometry, params,
                  pad_id: int = 0, transport=None):
-        if transport is not None:
-            raise NotImplementedError(
-                "the one-sided transport is not ported yet (ROADMAP.md, "
-                "Queue 1 #7)")
         self.cfg = cfg
         self.geom = geom
         self.params = params
@@ -55,6 +51,14 @@ class ContinuousBatcher:
         self.slots: List[Optional[Request]] = [None] * self.B
         self.prompt_pos = np.zeros(self.B, np.int64)  # next prompt token idx
         self._logits = None
+        # one-sided transport the page-table traffic is accounted against
+        # (None, or a repro_torch.rdma.RemoteMemory).  The scheduler step
+        # is the doorbell FLUSH BOUNDARY: every page translation of one
+        # decode step posts as one doorbell-batched round.
+        if transport is None:
+            from repro_torch.rdma import RemoteMemory
+            transport = RemoteMemory.from_policy(geom.store.policy)
+        self.transport = transport
 
     # -- request API ---------------------------------------------------------
 
@@ -106,6 +110,9 @@ class ContinuousBatcher:
             self.cfg, self.geom, self.params,
             torch.from_numpy(toks).to(self.geom.device), self.cache)
         self._logits = logits.cpu().numpy()
+        if self.transport is not None:
+            # flush boundary: the step's page translations, ONE doorbell
+            self.transport.post(KC.step_read_plan(self.geom, self.cache))
         live = 0
         for b, req in enumerate(self.slots):
             if req is None:

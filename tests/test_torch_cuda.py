@@ -827,3 +827,98 @@ def test_baseline_stores_on_card_match_cpu(dev):
             np.testing.assert_array_equal(tg[f], tc[f], err_msg=f)
         assert all(torch.equal(a, b.cpu()) for a, b in zip(rc, rg))
         assert lc == lg
+
+
+# -- maintenance and crash consistency ---------------------------------------
+
+TO_NUMPY = {"continuity": convert.table_to_numpy,
+            "level": convert.level_table_to_numpy,
+            "pfarm": convert.pfarm_table_to_numpy,
+            "dense": convert.dense_table_to_numpy}
+
+
+def _assert_fields_equal(a, b):
+    assert a.keys() == b.keys()
+    for f in a:
+        np.testing.assert_array_equal(b[f], a[f], err_msg=f)
+
+
+@pytest.mark.parametrize("op", ["insert", "update", "delete"])
+@pytest.mark.parametrize("stash", [0.0, 1 / 8], ids=["nostash", "stash"])
+def test_serial_oracles_on_card_match_cpu(dev, op, stash):
+    """The serial oracles on the card leave the CPU's tables, ok flags and
+    ledgers, and the card's wave engine lands on the same bytes, on a
+    table loaded into its extension pool and (stash) its stash."""
+    cfg = ch.ContinuityConfig(num_buckets=32, ext_frac=1.0, stash_frac=stash)
+    rng = np.random.RandomState(4)
+    n_base = 192 if op == "insert" else 448
+    kb, vb = ycsb.make_key(np.arange(n_base)), ycsb.make_value(rng, n_base)
+    start = n_base - 64 if op == "insert" else 0
+    ids = np.arange(start, start + 512)
+    ids[-64:] = start + rng.randint(0, 256, 64)          # duplicates
+    K, V = ycsb.make_key(ids), ycsb.make_value(rng, 512)
+    mask = rng.rand(512) > 0.1
+    out = []
+    for d, serial in (("cpu", True), ("cuda", True), ("cuda", False)):
+        t = ch.create(cfg, d)
+        ch.insert(cfg, t, kb, vb)
+        fn = getattr(ch, f"{op}_serial" if serial else op)
+        args = (K,) if op == "delete" else (K, V)
+        _, ok, led = fn(cfg, t, *args, mask)
+        out.append((convert.table_to_numpy(t), ok.cpu(),
+                    [int(x) for x in led]))
+    (tc, okc, lc), *rest = out
+    assert int(okc.sum()) > 0
+    for tg, okg, lg in rest:
+        _assert_fields_equal(tc, tg)
+        assert torch.equal(okc, okg) and lc == lg
+
+
+def test_resize_and_split_on_card_match_cpu(dev):
+    """``resize`` and the online split (interleaved with routed writes and
+    dual reads) give the CPU's tables, tokens and results on the card."""
+    rng = np.random.RandomState(6)
+    K, V = ycsb.make_key(np.arange(700)), ycsb.make_value(rng, 700)
+    W = ycsb.make_key(np.arange(1000, 1040))
+    out = []
+    for d in ("cpu", "cuda"):
+        store = api.make_store("continuity", table_slots=800, device=d)
+        t, _ = store.insert(store.create(), K, V)
+        _, grown = ch.resize(store.cfg, t, chunk=100)
+        rs = store.begin_resize(t, step_slo_us=25.0)
+        res = [rs.step_budget]
+        while not rs.done:
+            i = len(res) % 40
+            rs, r = store.resize_write(rs, "insert", W[i:i + 1], V[i:i + 1])
+            rs, r2 = store.resize_write(rs, "delete", K[i * 7:i * 7 + 3])
+            rs = store.resize_step(rs)
+            lk = store.resize_lookup(rs, K[::5])
+            res += [r.ok.cpu(), r2.ok.cpu(), lk.ok.cpu(), lk.values.cpu()]
+        new_store, new_t = store.resize_cutover(rs)
+        out.append((convert.table_to_numpy(grown), convert.table_to_numpy(t),
+                    convert.table_to_numpy(new_t), rs.moved, res))
+    (gc, tc, nc, mc, rc), (gg, tg, ng, mg, rg) = out
+    for a, b in ((gc, gg), (tc, tg), (nc, ng)):
+        _assert_fields_equal(a, b)
+    assert mc == mg and rc[0] == rg[0]
+    assert all(torch.equal(a, b) for a, b in zip(rc[1:], rg[1:]))
+
+
+@pytest.mark.parametrize("scheme", ["continuity", "level", "pfarm", "dense"])
+def test_crash_matrix_and_resize_on_card_match_cpu(dev, scheme):
+    """One crash-matrix cell per scheme (the update cell: logged paths,
+    and dense's torn negative control), continuity's resize cell, and the
+    store's one-step or split resize: card rows and tables equal CPU."""
+    from repro_torch.consistency import matrix
+    ops = ("update", "resize") if scheme == "continuity" else ("update",)
+    assert (matrix.run_rows([scheme], ops, device="cuda")
+            == matrix.run_rows([scheme], ops, device="cpu"))
+    K = ycsb.make_key(np.arange(60))
+    V = ycsb.make_value(np.random.RandomState(2), 60)
+    out = []
+    for d in ("cpu", "cuda"):
+        store = api.make_store(scheme, table_slots=240, device=d)
+        t, _ = store.insert(store.create(), K, V)
+        new_store, new_t = store.resize_cutover(store.begin_resize(t))
+        out.append(TO_NUMPY[scheme](new_t))
+    _assert_fields_equal(*out)
