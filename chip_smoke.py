@@ -65,6 +65,22 @@ Phases, in order:
    baselines' one-step resize on the card equal to the CPU's; (e) the
    continuous batcher under ``ExecPolicy(transport="sim")``: its transport
    counters on the card equal the CPU's.
+3f. The cluster, every store kernel's launch count set to 0 just before
+   and each probe / mutate launch on the card held in place against its
+   plain version: (a) at the reference's smoke sizes, ``cluster.sim.
+   run_cluster`` (600 records, 1,200 YCSB-A ops in batches of 240, join
+   ``pmJ`` at op 400, kill ``primary`` at op 800), ``durability_drill``,
+   ``migration_drill``, the crash matrix's 14 rows (``migrate`` included)
+   and the same cell on default-stash nodes of 280 slots that spill into
+   their stash: every payload on the card equals the CPU's, field for
+   field; (b) the full-size cluster: continuity nodes ``pm0``-``pm3`` of
+   the store's defaults (1/8 stash) sized by the reference's formula
+   (75,497,728 slots each), R 2, 50,331,648 YCSB records, 262,144 YCSB-A
+   ops (zipf 0.99) in batches of 65,536, join ``pmJ`` at a third of the
+   ops and kill ``primary`` at two thirds: zero committed loss, the join
+   within 1/N + 5 %, the kill detected and promoted log-free; load,
+   round, join, failover and audit seconds, the ``LinkModel``'s simulated
+   ops/s and latencies, peak device memory.
 4. Paged attention vs plain: the kernel against ``paged_attn_ref`` in
    float32 (2e-5) and bfloat16 (6e-2) on the shapes of
    ``tests/test_kernels.py``, G = 1 and 8, lengths on page boundaries and
@@ -98,7 +114,9 @@ Phases, in order:
    slots.
 7. Report: one JSON line of every kernel's launches (the TPU kernels' on
    the serving path, phase 5; the serial walk's on the baselines path,
-   phase 3c), error, times and bound; the card's name and power limit;
+   phase 3c; probe and mutate also on the cluster path, phase 3f, as
+   ``cluster_launches``), error, times and bound; the card's name and
+   power limit;
    last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises.  Without a CUDA device it exits non-zero and
@@ -1329,9 +1347,10 @@ def _split_full(torch, api, ch, ycsb, store, table, keys, vals, ok, card):
 
 
 def _in_situ_segments(torch, run):
-    """``run()`` with every segment-probe and mutation-plan kernel call
-    also computed by its plain version on the same operands, right after
-    the launch and before the caller reads the result (which goes on).
+    """``run()`` with every segment-probe and mutation-plan kernel call on
+    the card also computed by its plain version on the same operands,
+    right after the launch and before the caller reads the result (which
+    goes on; calls on CPU tensors run the plain version and pass through).
     Fails on the first difference.  Returns ``(run's result, checks)``:
     per kernel the calls checked, their batch sizes and table pairs, and
     the largest absolute difference.  The plain versions launch no
@@ -1346,6 +1365,8 @@ def _in_situ_segments(torch, run):
     def checked(name, kern, plain):
         def call(rows, *args):
             out = kern(rows, *args)
+            if rows.device.type == "cpu":   # the plain version ran
+                return out
             c = checks[name]
             for g, w in zip(out, plain(rows, *args)):
                 d = (g.to(torch.int64) - w.to(torch.int64)).abs()
@@ -1553,6 +1574,159 @@ def sim_batcher_check(torch, card) -> None:
           f"{s['posts']} posts, {s['doorbells']} doorbells, {s['verbs']} "
           f"verbs, {s['bytes']} bytes, {s['simulated_us']:.3f} simulated us "
           f"(LinkModel), card == CPU [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: the cluster
+# ---------------------------------------------------------------------------
+
+CLUSTER_RECORDS = 50_331_648   # the paper's record count (§V-A)
+CLUSTER_OPS = 262_144          # 4 rounds of YCSB-A
+CLUSTER_BATCH = 65_536
+SPILL_NODE_SLOTS = 280         # (a)'s stash cell: nodes this small spill
+
+
+def _stash_cell(d):
+    """The --smoke cell on default-stash nodes small enough to spill."""
+    from repro_torch.cluster import sim
+    return sim.run_cluster(device=d, node_slots=SPILL_NODE_SLOTS,
+                           **sim.smoke_kwargs(True))
+
+
+def _cluster_small(torch, card) -> str:
+    """(a): at the reference's smoke sizes, every payload on the card
+    equals the CPU's, field for field."""
+    from repro_torch import api
+    from repro_torch.cluster import sim
+    from repro_torch.consistency import matrix
+    runs = {
+        "run_cluster": lambda d: sim.run_cluster(device=d,
+                                                 **sim.smoke_kwargs(True)),
+        "durability_drill": lambda d: sim.durability_drill(device=d),
+        "migration_drill": lambda d: sim.migration_drill(device=d),
+        "matrix.run_rows": lambda d: matrix.run_rows(device=d),
+        "stash cell": _stash_cell,
+    }
+    out, lines = {}, []
+    for name, fn in runs.items():
+        gpu, t_gpu = _timed(torch, lambda: fn("cuda"))
+        t0 = time.perf_counter()
+        cpu = fn("cpu")
+        t_cpu = time.perf_counter() - t0
+        _check(gpu == cpu, f"{name} on the card equals the CPU's payload")
+        out[name] = gpu
+        lines.append(f"{name} card {t_gpu:.2f} s / CPU {t_cpu:.2f} s")
+    cell = out["run_cluster"]
+    _check(cell["committed"] == 600 and cell["committed_lost"] == 0
+           and cell["rebalance_within_bound"] and cell["failover_detected"],
+           "the smoke cell: 600 committed, 0 lost, join within bound, "
+           "failover detected")
+    _check(out["durability_drill"]["ok"] and out["migration_drill"]["ok"],
+           "both drills pass")
+    rows = out["matrix.run_rows"]
+    _check(len(rows) == 14 and all(r["ok"] for r in rows)
+           and "migrate" in [r["op"] for r in rows],
+           "the crash matrix: 14 rows, migrate included, every cell passes")
+    spill = out["stash cell"]
+    cfg = api.make_store("continuity", table_slots=SPILL_NODE_SLOTS,
+                         device="cpu").cfg
+    room = (cfg.num_pairs * cfg.slots_per_pair
+            + cfg.ext_pool_pairs * cfg.ext_slots)
+    over = {n: st["resident"] for n, st in spill["stats"]["nodes"].items()
+            if not st["resizing"] and st["resident"] > room}
+    _check(over, "a node of the stash cell holds more items than its main "
+           "and extension slots (its stash entries are live)")
+    join = next(e for e in cell["events"] if e["event"] == "join")
+    print(f"phase 3f (a): card == CPU field for field: {'; '.join(lines)}; "
+          f"smoke cell {cell['committed']} committed, "
+          f"{cell['committed_lost']} lost, join moved_frac "
+          f"{join['moved_frac']:.4f} <= {join['bound']}, "
+          f"{cell['ops_per_s']:.0f} simulated ops/s (LinkModel); "
+          f"crash matrix {len(rows)} rows; stash cell (node_slots "
+          f"{SPILL_NODE_SLOTS}, {room} main + extension slots): residents "
+          f"above that {over}, {spill['committed_lost']} of "
+          f"{spill['committed']} acked values read back otherwise (a "
+          f"member that refuses an update another member applied) [{card}]",
+          flush=True)
+    return cell
+
+
+def _cluster_full(torch, card) -> dict:
+    """(b): the full-size cluster — the deployment the reference's
+    ``run_cluster`` describes at the paper's record count."""
+    from repro_torch import api
+    from repro_torch.cluster import sim
+    kw = dict(num_records=CLUSTER_RECORDS, num_ops=CLUSTER_OPS,
+              batch=CLUSTER_BATCH, nodes=4, replicas=2, seed=SEED,
+              events=(("join", CLUSTER_OPS // 3, "pmJ"),
+                      ("kill", 2 * CLUSTER_OPS // 3, "primary")))
+    slots = sim._node_slots("A", CLUSTER_BATCH, CLUSTER_RECORDS, CLUSTER_OPS,
+                            4, 2)
+    cfg = api.make_store("continuity", table_slots=slots, device="cpu").cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tm = {}
+    cell, t_all = _timed(torch, lambda: sim.run_cluster(
+        "continuity", "A", device="cuda", timings=tm, **kw))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    join = next(e for e in cell["events"] if e["event"] == "join")
+    fail = [e for e in cell["events"] if e["event"] == "failover"]
+    rounds = ", ".join(f"{1e3 * t:.1f}" for t in tm["round"])
+    # YCSB-A's one update batch per round: its pre-batch read (`_peek`)
+    peeks = ", ".join(f"{1e3 * p:.1f} ms ({p / t:.4f} of its round)"
+                      for p, t in zip(tm["peek"], tm["round"]))
+    print(f"phase 3f (b): cluster of 4 nodes (+ pmJ), R 2, continuity "
+          f"{cfg.num_pairs} pairs / {cfg.stash_slots} stash slots per node "
+          f"(node_slots {slots}), {CLUSTER_RECORDS} records, YCSB-A zipf "
+          f"0.99, {CLUSTER_OPS} ops in batches of {CLUSTER_BATCH}: load "
+          f"{tm['load'][0]:.3f} s; rounds {rounds} ms; join copy "
+          f"{tm['join_copy'][0]:.3f} s, cutover + cleanup "
+          f"{tm['join_cutover'][0]:.3f} s, moved_frac "
+          f"{join['moved_frac']:.6f} (bound {join['bound']}), copied "
+          f"{join['copied']}, cleaned {join['cleaned']}; failover "
+          f"{sum(tm['failover']):.3f} s {fail}; audit {tm['audit'][0]:.3f} "
+          f"s; committed {cell['committed']}, lost {cell['committed_lost']}, "
+          f"replicas rewritten by the torn-update repair "
+          f"{tm['torn_repaired'][0]}, its pre-batch reads {peeks}; "
+          f"maintenance {cell['maintenance']}; LinkModel "
+          f"{cell['ops_per_s']:.0f} simulated ops/s, p50 "
+          f"{cell['p50_us']:.4f} us, p99 {cell['p99_us']:.4f} us; whole "
+          f"cell {t_all:.1f} s; peak device memory {peak:.3f} GiB [{card}]",
+          flush=True)
+    _check(cell["committed"] == CLUSTER_RECORDS,
+           "every record of the load acknowledged")
+    _check(cell["committed_lost"] == 0, "zero committed-op loss")
+    _check(join["moved_frac"] <= 1 / 5 + 0.05 and
+           cell["rebalance_within_bound"], "the join moved <= 1/N + 5 %")
+    _check(cell["failover_detected"] and len(fail) == 1 and
+           fail[0]["recovery_log_free"], "the kill was detected and "
+           "promoted with log-free recovery")
+    return cell
+
+
+def cluster_phase(torch, card) -> tuple:
+    """Phase 3f, with every store-kernel call held in place against its
+    plain version; returns (its kernels' launch counts, set to 0 before;
+    the in-place checks)."""
+    from repro_torch.kernels import mutate, probe, scan_walk
+    probe.probe_segments.launches = 0
+    mutate.mutate_segments.launches = 0
+    scan_walk.scan_walk.launches = 0
+    _, checks = _in_situ_segments(torch, lambda: (
+        _cluster_small(torch, card), _cluster_full(torch, card)))
+    launches = {"probe_segments": probe.probe_segments.launches,
+                "mutate_segments": mutate.mutate_segments.launches}
+    for name, n in launches.items():
+        _check(n > 0, f"the cluster path launched {name}")
+    for name, c in checks.items():
+        _check(c["calls"] == launches[name] > 0, f"every {name} launch of "
+               f"the cluster path was held against its plain version")
+        print(f"phase 3f: {name} held against its plain version at each of "
+              f"its {c['calls']} launches on this path, batches "
+              f"{min(c['batches'])}-{max(c['batches'])}, tables of "
+              f"{sorted(c['pairs'])} pairs, max_abs_err {c['max_abs_err']} "
+              f"[{card}]", flush=True)
+    return launches, checks
 
 
 # ---------------------------------------------------------------------------
@@ -2176,6 +2350,13 @@ def main() -> int:
     sim_batcher_check(torch, card)
     print(f"maintenance path: {time.perf_counter() - t0:.1f} s, kernel "
           f"launches {m_launches} [{card}]", flush=True)
+
+    # -- phase 3f: the cluster, launches counted -------------------------
+    t0 = time.perf_counter()
+    c_launches, c_checks = cluster_phase(torch, card)
+    torch.cuda.empty_cache()
+    print(f"cluster path: {time.perf_counter() - t0:.1f} s, kernel "
+          f"launches {c_launches} [{card}]", flush=True)
     walk_err = max([walk_err] + [t[2] for t in walk_timing.values()])
     ins, floor = walk_timing["level"][0]["insert"], walk_timing["level"][1]
     # latency_floor_ms: WALK_B dependent trips at the warm token chase's
@@ -2206,9 +2387,11 @@ def main() -> int:
     launches["scan_walk"] = walk_launches
     for r in rows:
         r["launches"] = launches[r["name"]]
-        if r["name"] in m_checks:      # phase 3e's in-place comparisons
+        if r["name"] in m_checks:      # phases 3e and 3f's in-place checks
             r["max_abs_err"] = max(r["max_abs_err"],
-                                   m_checks[r["name"]]["max_abs_err"])
+                                   m_checks[r["name"]]["max_abs_err"],
+                                   c_checks[r["name"]]["max_abs_err"])
+            r["cluster_launches"] = c_launches[r["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

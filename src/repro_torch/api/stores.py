@@ -304,6 +304,16 @@ class ContinuityStore(_ModuleStore):
                 f"{self.name!r} table — the split did not drain")
         return state.new_store, state.new_table
 
+    def recover(self, table_or_state):
+        """The restart procedure (`continuity.restart`) on the store's
+        device, of a table or of a crash-injected numpy state."""
+        from repro_torch.consistency.schemes import HANDLERS
+        h = HANDLERS[self.name]
+        table = h.state_to_table(self.cfg, h.init_state(
+            self.cfg, table_or_state), self.device) if isinstance(
+                table_or_state, dict) else table_or_state
+        return h.restart_table(self.cfg, table)
+
     # -- mid-split routing (the maintenance loop's read/write path) ---------
     def resize_lookup(self, state: ResizeState, keys) -> OpResult:
         """Dual read during a split: each key reads the table its cohort's

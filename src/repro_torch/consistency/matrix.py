@@ -1,19 +1,19 @@
 """The crash/scheme matrix: every scheme x insert/update/delete (plus the
-incremental-resize cell), swept through every crash point — the gate for
-the consistency subsystem.  Port of ``repro.consistency.matrix``; the
+cluster's live-migration cell and the incremental-resize cell), swept
+through every crash point — the gate for the consistency subsystem.  Port of ``repro.consistency.matrix``; the
 stores live on ``--device`` (the card unless asked for the CPU) and each
 row equals the reference's.
 
 Each cell traces a small batch against a pre-loaded store, injects a crash
 at every PM-store boundary (plus every torn split of non-atomic stores),
 runs the scheme's recovery, and checks atomic per-op visibility
-(`repro_torch.consistency.checker`).  The ``resize`` cell sweeps the
-online split (cohort copies -> token cutover -> source deletes,
-`repro_torch.consistency.split`) the same way: dual-read resolution must
-equal the original item set at EVERY crash prefix, with zero resize log.
-The reference's ``migrate`` cell needs the cluster layer, which is not
-ported yet: it is left out of the default ``--ops`` and
-`run_migration_cell` raises.  Expectations encode the paper's contrast:
+(`repro_torch.consistency.checker`).  The ``migrate`` cell sweeps a live
+shard migration (dest copies -> token cutover -> source deletes,
+`repro_torch.cluster.migration`) the same way: dual-read resolution must
+equal the original item set at EVERY crash prefix, with zero migration
+log.  The ``resize`` cell sweeps the online split (cohort copies -> token
+cutover -> source deletes, `repro_torch.consistency.split`) likewise, with
+zero resize log.  Expectations encode the paper's contrast:
 
   * ``continuity`` — consistent at every crash point with ZERO log
     records (trace contains none, recovery reads none);
@@ -117,18 +117,18 @@ def run_matrix(schemes=None, ops=OPS, order: str = "serial",
     return [run_cell(s, op, order, device) for s in schemes for op in ops]
 
 
-def run_rows(schemes=None, ops=OPS + ("resize",), order: str = "serial",
-             device="cuda") -> List[dict]:
-    """Summary rows for every requested cell, resize included — the ONE
-    inventory the CLI and library callers share.  ``migrate`` (in the
-    reference's default) waits for the cluster layer."""
+def run_rows(schemes=None, ops=OPS + ("migrate", "resize"),
+             order: str = "serial", device="cuda") -> List[dict]:
+    """Summary rows for every requested cell, migrate and resize included
+    — the ONE inventory the CLI and library callers share."""
     rows = [summarize(r) for r in
             run_matrix(schemes,
                        tuple(o for o in ops
                              if o not in ("migrate", "resize")), order,
                        device)]
     if "migrate" in ops:
-        rows += [run_migration_cell(s) for s in MIGRATE_SCHEMES
+        rows += [run_migration_cell(s, device=device)
+                 for s in MIGRATE_SCHEMES
                  if schemes is None or s in schemes]
     if "resize" in ops:
         rows += [run_resize_cell(s, device=device) for s in RESIZE_SCHEMES
@@ -136,12 +136,34 @@ def run_rows(schemes=None, ops=OPS + ("resize",), order: str = "serial",
     return rows
 
 
-def run_migration_cell(scheme: str, n_move: int = 6) -> dict:
-    """The cluster's live-migration crash cell of the reference: not
-    ported until the cluster layer is (ROADMAP.md Queue 1 #4)."""
-    raise NotImplementedError(
-        "the migrate cell needs the cluster layer (cluster/migration.py), "
-        "not ported yet: ROADMAP.md Queue 1 #4")
+def run_migration_cell(scheme: str, n_move: int = 6,
+                       device="cuda") -> dict:
+    """The cluster's live-migration crash cell: sweep every crash prefix
+    of dest-copy -> token-cutover -> source-delete and require the
+    dual-read-resolved item set to equal the original at every point
+    (`repro_torch.cluster.migration.migration_crash_sweep`)."""
+    from repro_torch.cluster.migration import migration_crash_sweep
+    store, src_table, _, _, _ = _load(scheme, device)
+    keys, vals, live = store._extract(src_table)
+    K = keys[live].cpu().numpy().view(np.uint32)[:n_move]
+    V = vals[live].cpu().numpy().view(np.uint32)[:n_move]
+    sweep = migration_crash_sweep(store, src_table, store.create(), K, V)
+    want = EXPECT.get((scheme, "migrate"), (None, None))
+    ok = ((want[0] is None or want[0] == sweep.consistent)
+          and (want[1] is None or want[1] == sweep.log_free))
+    return {
+        "scheme": scheme, "op": "migrate", "order": "serial",
+        "paths": ["migrate"],
+        "crash_points": sweep.crash_points,
+        "torn_points": sweep.torn_points,
+        "violations": len(sweep.violations),
+        "consistent": sweep.consistent, "log_free": sweep.log_free,
+        "trace_log_records": sweep.log_records_in_trace,
+        "log_used_points": int(sweep.report.log_records_used > 0),
+        "recovery": dataclasses.asdict(sweep.report),
+        "expected": list(want),
+        "ok": ok,
+    }
 
 
 def run_resize_cell(scheme: str, factor: int = 2, device="cuda") -> dict:
@@ -203,7 +225,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--schemes", default=None,
                    help="comma-separated subset (default: all registered)")
-    p.add_argument("--ops", default=",".join(OPS + ("resize",)))
+    p.add_argument("--ops", default=",".join(OPS + ("migrate", "resize")))
     p.add_argument("--device", default="cuda",
                    help="where the stores live (default: the card)")
     p.add_argument("--json", default=None, help="write cell summaries here")

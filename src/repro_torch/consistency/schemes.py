@@ -448,48 +448,27 @@ class ContinuityHandler(_Handler):
                                      st["ext_count"].dtype)
         return st
 
-    def _row_has_key(self, cfg, st, pair, kb) -> bool:
-        S, E = cfg.slots_per_pair, cfg.ext_slots
-        ind = int(st["indicator"][pair])
-        for s in range(S):
-            if ind >> s & 1 and _key_bytes(st["keys"][pair, s]) == kb:
-                return True
-        e = int(st["ext_map"][pair])
-        if e >= 0:
-            for s in range(E):
-                if (ind >> (S + s) & 1
-                        and _key_bytes(st["ext_keys"][e, s]) == kb):
-                    return True
-        return False
-
     def recover(self, cfg, st):
-        """Paper §III-C restart: a PURE function of the commit words — the
-        indicator words plus (stash-enabled geometries only) the stash meta
-        words.  A crashed stash relocation can leave a live meta word whose
-        entry is shadowed by the committed row copy; recovery clears those
-        (bounded by the stash size, the only payload reads it ever does)
-        and re-derives the per-pair count bytes.  No log, ever."""
+        """Paper §III-C restart (`restart_table`) of a numpy state, on the
+        CPU; the state's other fields are kept."""
+        table, report = self.restart_table(
+            cfg, self.state_to_table(cfg, st, "cpu"))
         st = copy_state(st)
-        T = cfg.stash_slots
-        dups = scanned = 0
-        if T:
-            seen = set()
-            for i in np.nonzero(st["stash_meta"][:T] != 0)[0]:
-                scanned += 1
-                pair = int(st["stash_meta"][i]) - 1
-                kb = _key_bytes(st["stash_keys"][i])
-                if self._row_has_key(cfg, st, pair, kb) or (pair, kb) in seen:
-                    st["stash_meta"][i] = U32(0)
-                    dups += 1
-                else:
-                    seen.add((pair, kb))
-            for p in range(cfg.num_pairs):
-                cnt = int((st["stash_meta"][:T] == U32(p + 1)).sum())
-                st["fp"][p, 1] = U32(
-                    (int(st["fp"][p, 1]) & ((1 << ch.STASH_CNT_SHIFT) - 1))
-                    | (cnt << ch.STASH_CNT_SHIFT))
-        return self.rebuild_counts(cfg, st), RecoveryReport(
-            self.name, commit_words_scanned=cfg.num_pairs + T,
+        st.update(self.to_numpy(table))
+        return st, report
+
+    def restart_table(self, cfg, table):
+        """Paper §III-C restart of a port table on its device
+        (`continuity.restart`): a PURE function of the commit words — the
+        indicator words plus (stash-enabled geometries only) the stash
+        meta words.  A crashed stash relocation can leave a live meta word
+        whose entry is shadowed by the committed row copy; recovery clears
+        those (bounded by the stash size, the only payload reads it ever
+        does) and re-derives the per-pair count bytes.  No log, ever.
+        Returns ``(new table, RecoveryReport)``."""
+        table, scanned, dups = ch.restart(cfg, table)
+        return table, RecoveryReport(
+            self.name, commit_words_scanned=cfg.num_pairs + cfg.stash_slots,
             payload_slots_scanned=scanned, duplicates_cleared=dups)
 
 

@@ -49,7 +49,7 @@ import torch
 from repro_torch.core import pmem
 from repro_torch.core.hashfn import hash128, hash128_2
 from repro_torch.core.words import (as_words, batch_words, bit, popcount,
-                                    resolve_device, to_i32, u32)
+                                    resolve_device, row_groups, to_i32, u32)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -327,18 +327,82 @@ class LookupResult(NamedTuple):
 
 def _stash_tail(cfg, table, keys, pair, found, values, slot, reads):
     """Stash probe of a lookup: the whole region arrives in one contiguous
-    READ; priority main > extension > stash.  A dense (B, T) compare, as
-    in the reference."""
+    READ; priority main > extension > stash.  Each query compares only the
+    entries homed at its pair (`_stash_find`)."""
     found_me = found
-    home = pair.to(I32) + 1
-    smatch = (table.stash_meta[None, :] == home[:, None]) & (
-        table.stash_keys[None, :, :] == keys[:, None, :]).all(-1)
-    sfound = smatch.any(-1) & ~found
-    sfirst = _first(smatch)
+    shit, sfirst = _stash_find(cfg, table, keys, pair)
+    sfound = shit & ~found
     values = torch.where(sfound[:, None], table.stash_vals[sfirst], values)
     slot = torch.where(sfound, cfg.total_bits + sfirst, slot)
     reads = reads + ((stash_count(table, pair) > 0) & ~found_me).to(I64)
     return found | sfound, values, slot, reads
+
+
+# (query, stash entry) lanes one chunk of `_stash_find` compares at most
+_STASH_FIND_LANES = 1 << 24
+# spare count bins of `_stash_find` for free stash rows: their adds spread
+# over these instead of queueing on one address
+_SPARE_BINS = 1024
+
+
+def _stash_find(cfg, table: ContinuityTable, keys, pair):
+    """``(hit, sidx)`` per query: whether a live stash entry homed at the
+    query's pair (``stash_meta == pair + 1``) holds its key, and the
+    lowest such stash index (0 where none; callers mask it).
+
+    A stash index keyed by home pair, built per call: the live entries
+    are counted per home (one T-wide scatter-add), ordered by home with a
+    stable sort (index order kept within a home), each query's range is
+    found by ``searchsorted``, and only that range is compared.  Memory
+    is O(B * c + T + P), c the longest range a query has.  The one host
+    sync reads the live count and c together; a stash with no entry at
+    any queried pair stops there, after a few T-wide passes.
+    `_stash_find_dense` is the plain (B, T) version it equals."""
+    B, dev = keys.shape[0], keys.device
+    hit = torch.zeros(B, dtype=torch.bool, device=dev)
+    sidx = torch.zeros(B, dtype=I64, device=dev)
+    if not B:
+        return hit, sidx
+    meta = table.stash_meta.to(I64)
+    T = meta.shape[0]
+    live = meta != 0
+    ids = torch.arange(T, device=dev)
+    bins = torch.where(live, meta,
+                       cfg.num_pairs + 1 + (ids & (_SPARE_BINS - 1)))
+    counts = torch.zeros(cfg.num_pairs + 1 + _SPARE_BINS, dtype=I32,
+                         device=dev).index_add_(
+        0, bins, torch.ones(T, dtype=I32, device=dev))
+    home = pair.to(I64) + 1
+    cnt = counts[home]
+    n_live, c = torch.stack([live.sum(), cnt.max().to(I64)]).tolist()
+    if not c:
+        return hit, sidx
+    # the live rows in index order (the free ones land past the end)
+    at = torch.where(live, torch.cumsum(live, 0) - 1, n_live)
+    rows = torch.empty(n_live + 1, dtype=I64, device=dev).scatter_(
+        0, at, ids)[:n_live]
+    homes, by_home = torch.sort(meta[rows], stable=True)
+    rows = rows[by_home]
+    lo = torch.searchsorted(homes, home)
+    j = torch.arange(c, device=dev)
+    step = max(1, _STASH_FIND_LANES // c)
+    for s in range(0, B, step):
+        q = slice(s, s + step)
+        ent = rows[(lo[q, None] + j).clamp(max=n_live - 1)]
+        m = (j < cnt[q, None]) & (
+            table.stash_keys[ent] == keys[q, None, :]).all(-1)
+        hit[q] = m.any(-1)
+        sidx[q] = torch.where(hit[q], _take(ent, _first(m)), 0)
+    return hit, sidx
+
+
+def _stash_find_dense(cfg, table: ContinuityTable, keys, pair):
+    """The plain version of `_stash_find`: a dense (B, T) compare of every
+    query against every stash entry (tests only)."""
+    home = pair.to(I32) + 1
+    smatch = (table.stash_meta[None, :] == home[:, None]) & (
+        table.stash_keys[None, :, :] == keys[:, None, :]).all(-1)
+    return smatch.any(-1), _first(smatch)
 
 
 def lookup(cfg: ContinuityConfig, table: ContinuityTable,
@@ -1016,22 +1080,6 @@ def _gather_candidate_keys(cfg: ContinuityConfig, table: ContinuityTable,
     return cand, cand_keys, valid, slot_ok
 
 
-def _stash_match(cfg, table: ContinuityTable, keys, pair):
-    """(B, T) bool: stash entries holding ``keys`` homed at ``pair``."""
-    home = pair.to(I32) + 1
-    return (table.stash_meta[None, :] == home[:, None]) & (
-        table.stash_keys[None, :, :] == keys[:, None, :]).all(-1)
-
-
-def _stash_match_gated(cfg, table: ContinuityTable, keys, pair):
-    """`_stash_match`, skipped (all-False) while no pair has a live stash
-    entry — one count-byte reduction gates the (B, T) compare."""
-    if bool(((table.fp[:, 1] >> STASH_CNT_SHIFT) & 0xFF).any()):
-        return _stash_match(cfg, table, keys, pair)
-    return torch.zeros((keys.shape[0], cfg.stash_slots), dtype=torch.bool,
-                       device=keys.device)
-
-
 def _stash_release(table, pw, sidx) -> None:
     """Free stash rows and decrement their pairs' count bytes."""
     table.stash_meta[sidx] = 0
@@ -1056,9 +1104,8 @@ def _delete_wave(cfg: ContinuityConfig, table: ContinuityTable, keys,
     _commit_indicator(table, okw, p, word)          # the ONE PM write
     pm = okw.sum()
     if cfg.stash_slots:
-        smatch = _stash_match(cfg, table, k, p)
-        sok = ~okw & smatch.any(-1)
-        sidx = _first(smatch)
+        shit, sidx = _stash_find(cfg, table, k, p)
+        sok = ~okw & shit
         table.version.index_add_(0, p[sok], torch.ones_like(p[sok], dtype=I32))
         _stash_release(table, p[sok], sidx[sok])
         okw = okw | sok
@@ -1140,8 +1187,8 @@ def _dup_targets(cfg: ContinuityConfig, pair, cm, mslot, cs, sidx):
 
 def _stash_state(cfg, table, keys, pair, found):
     if cfg.stash_slots:
-        smatch = _stash_match_gated(cfg, table, keys, pair)
-        return ~found & smatch.any(-1), _first(smatch)
+        shit, sidx = _stash_find(cfg, table, keys, pair)
+        return ~found & shit, sidx
     z = torch.zeros(keys.shape[0], dtype=I64, device=keys.device)
     return z.bool(), z
 
@@ -1215,9 +1262,8 @@ def _update_wave(cfg: ContinuityConfig, table: ContinuityTable, keys, vals,
     new = _take(cand, _first(empty))
     has_empty = empty.any(-1)
     if cfg.stash_slots:
-        smatch = _stash_match(cfg, table, k, p)
-        in_stash = ~found & smatch.any(-1)
-        sidx = _first(smatch)
+        shit, sidx = _stash_find(cfg, table, k, p)
+        in_stash = ~found & shit
         found = found | in_stash
     else:
         in_stash = torch.zeros_like(found)
@@ -1386,6 +1432,58 @@ def extract_items(cfg: ContinuityConfig, table: ContinuityTable):
         vals.append(table.stash_vals)
         mask.append(table.stash_meta != 0)
     return torch.cat(keys), torch.cat(vals), torch.cat(mask)
+
+
+def restart(cfg: ContinuityConfig, table: ContinuityTable):
+    """Paper §III-C restart of a (possibly crashed) table, on its device:
+    a pure function of the commit words.  Returns ``(new table, scanned,
+    cleared)``.  A live stash entry is cleared when its pair's committed
+    row (main or extension slots) holds its key — a stash relocation
+    crashed after the row commit — or when an earlier live entry holds the
+    same (pair, key); then the per-pair stash count bytes, ``count`` and
+    ``ext_count`` are re-derived.  ``scanned`` counts the live stash
+    entries read, ``cleared`` the entries cleared.  The port's one continuity
+    restart: the store's ``recover`` and the crash-consistency handler's
+    both run it."""
+    t = ContinuityTable(*(x.clone() for x in table))
+    P, S, E, T = cfg.num_pairs, cfg.slots_per_pair, cfg.ext_slots, \
+        cfg.stash_slots
+    dev = t.keys.device
+    scanned = cleared = 0
+    if T:
+        idx = (t.stash_meta[:T] != 0).nonzero().squeeze(1)
+        scanned = int(idx.numel())
+        if scanned:
+            pair = t.stash_meta[idx].to(I64) - 1
+            k = t.stash_keys[idx]
+            ind = u32(t.indicator[pair])[:, None]
+            bits = (ind >> torch.arange(S, device=dev)) & 1
+            in_row = ((bits == 1) & (t.keys[pair] == k[:, None, :]).all(-1)
+                      ).any(-1)
+            if E:
+                e = t.ext_map[pair].to(I64)
+                ebits = (ind >> (S + torch.arange(E, device=dev))) & 1
+                in_row |= (e >= 0) & ((ebits == 1) & (
+                    t.ext_keys[e.clamp(min=0)] == k[:, None, :]).all(-1)
+                ).any(-1)
+            _, first = row_groups(torch.cat([pair[:, None], k.to(I64)], 1))
+            drop = in_row | ~first
+            t.stash_meta[idx[drop]] = 0
+            cleared = int(drop.sum())
+        cnt = torch.bincount(t.stash_meta[:T].to(I64),
+                             minlength=P + 1)[1:P + 1]
+        low = u32(t.fp[:, 1]) & ((1 << STASH_CNT_SHIFT) - 1)
+        t.fp[:, 1] = to_i32(low | (cnt << STASH_CNT_SHIFT))
+    ind = u32(t.indicator)
+    mapped = t.ext_map >= 0
+    n = popcount(ind & ((1 << S) - 1)).sum()
+    if E:
+        n = n + (popcount((ind >> S) & ((1 << E) - 1)) * mapped).sum()
+    if T:
+        n = n + (t.stash_meta[:T] != 0).sum()
+    t.count.fill_(int(n))
+    t.ext_count.fill_(int(mapped.sum()))
+    return t, scanned, cleared
 
 
 def _grown_table(cfg: ContinuityConfig, table: ContinuityTable,

@@ -86,3 +86,23 @@ def batch_words(device, keys, vals=None, mask=None):
         active = torch.from_numpy(
             np.asarray(mask, dtype=bool).reshape(B)).to(device)
     return keys, vals, active
+
+
+def row_groups(rows: torch.Tensor):
+    """Group the equal rows of an (N, L) integer tensor on its device:
+    ``(gid, first)`` — each row's group id (groups numbered in the rows'
+    lexicographic order) and whether it is the first row of its group in
+    index order.  Stable sorts lane by lane, never an (N, N) compare."""
+    N, dev = rows.shape[0], rows.device
+    perm = torch.arange(N, device=dev)
+    for lane in reversed(range(rows.shape[1])):
+        perm = perm[torch.sort(rows[perm, lane], stable=True).indices]
+    srt = rows[perm]
+    new = torch.ones(N, dtype=torch.bool, device=dev)
+    if N > 1:
+        new[1:] = (srt[1:] != srt[:-1]).any(dim=1)
+    gid = torch.empty(N, dtype=torch.int64, device=dev)
+    gid[perm] = torch.cumsum(new, 0) - 1
+    first = torch.zeros(N, dtype=torch.bool, device=dev)
+    first[perm[new]] = True
+    return gid, first

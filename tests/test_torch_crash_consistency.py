@@ -120,13 +120,17 @@ def test_resize_cell_matches_reference():
     assert_traces_equal(jtr, tr)
 
 
-def test_run_rows_leaves_out_migrate_until_the_cluster_layer():
-    rows = matrix.run_rows(["dense"], ("delete", "resize"), device="cpu")
-    assert [r["op"] for r in rows] == ["delete"]   # resize: continuity only
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        matrix.run_rows(["continuity"], ("migrate",), device="cpu")
-    assert matrix.main(["--device", "cpu", "--schemes", "dense",
-                        "--ops", "insert,update", "--quiet"]) == 0
+def test_migrate_cell_rows_equal_reference():
+    """The matrix runs the cluster's live-migration cell by default again,
+    and its row equals the reference's field for field."""
+    row = matrix.run_migration_cell("continuity", device="cpu")
+    assert row == jmatrix.run_migration_cell("continuity")
+    assert row["ok"] and row["consistent"] and row["log_free"]
+    assert row["crash_points"] > row["torn_points"] > 0
+    rows = matrix.run_rows(["continuity"], ("migrate",), device="cpu")
+    assert rows == jmatrix.run_rows(["continuity"], ("migrate",))
+    assert matrix.main(["--device", "cpu", "--schemes", "continuity",
+                        "--ops", "migrate", "--quiet"]) == 0
 
 
 @pytest.mark.parametrize("op", OPS)
@@ -321,10 +325,13 @@ def test_level_movement_crash_safe_and_dedup():
 def test_serving_page_table_crash_checkable(scheme):
     """``open_new_pages_traced`` maps the pages `open_new_pages` maps, and
     every crash image of a shard's allocation batch recovers log-free to
-    exact page ids (the restart drill: ``store.recover`` per image)."""
+    exact page ids (the restart drill, `page_table_recovery_drill`, as
+    the reference's)."""
+    from repro import api as japi
+    from repro.runtime.fault import page_table_recovery_drill as j_drill
     from repro_torch.configs import smoke_config
-    from repro_torch.consistency import RecoveryReport
     from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime.fault import page_table_recovery_drill
     from repro_torch.serving import kvcache as KC
 
     cfg = smoke_config("yi-6b")
@@ -345,13 +352,18 @@ def test_serving_page_table_crash_checkable(scheme):
     assert np.array_equal(ref.cur_page.numpy(), traced.cur_page.numpy())
     images = [cs.state for cs in crash_states(base, traces[0].trace)]
     assert len(images) > 2
-    merged = RecoveryReport(geom.store.name)
-    for img in images:
-        tbl, rep = geom.store.recover(img)
-        merged = merged.merge(rep)
+    tables, merged = page_table_recovery_drill(geom.store, images)
+    assert len(tables) == len(images)
+    for tbl in tables:
         for k, v in h.visible(scfg, h.init_state(scfg, tbl)).items():
             assert len(v) == 16
     assert merged.log_records_used == 0          # log-free at serving scale
+    # the drill is the reference's: the same merged report on the images
+    jstore = japi.make_store(scheme, table_slots=KC.page_table_slots(
+        geom.batch_per_shard * geom.max_pages))
+    assert dataclasses.asdict(jstore.cfg) == dataclasses.asdict(scfg)
+    _, jmerged = j_drill(jstore, images)
+    assert dataclasses.asdict(merged) == dataclasses.asdict(jmerged)
 
 
 def test_store_recover_accepts_tables_and_reports():

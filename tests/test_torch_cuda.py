@@ -922,3 +922,122 @@ def test_crash_matrix_and_resize_on_card_match_cpu(dev, scheme):
         new_store, new_t = store.resize_cutover(store.begin_resize(t))
         out.append(TO_NUMPY[scheme](new_t))
     _assert_fields_equal(*out)
+
+
+# ---------------------------------------------------------------------------
+# the stash index and the cluster layer
+# ---------------------------------------------------------------------------
+
+def test_stash_index_on_card_matches_dense_and_cpu(dev):
+    """`_stash_find` on the card gives the dense compare's hit and lowest
+    index, and the CPU's, on a stash-heavy table with a repeated entry;
+    lookup, update and delete there equal the CPU's tables."""
+    cfg = ch.ContinuityConfig(num_buckets=256, stash_frac=1 / 8)
+    n = int(cfg.num_pairs * cfg.slots_per_pair * 1.02)
+    rng = np.random.RandomState(8)
+    K, V = ycsb.make_key(np.arange(n)), ycsb.make_value(rng, n)
+    t = ch.create(cfg, "cpu")
+    ch.insert(cfg, t, K, V)
+    ch.delete(cfg, t, K[::10])
+    live = (t.stash_meta != 0).nonzero().squeeze(1)
+    free = (t.stash_meta == 0).nonzero().squeeze(1)
+    for f in ("stash_keys", "stash_vals", "stash_meta"):
+        getattr(t, f)[free[-1]] = getattr(t, f)[live[1]]
+    Q = ycsb.make_key(rng.randint(0, n + n // 4, size=4096))
+    W = ycsb.make_value(rng, 4096)
+    out = []
+    for d in ("cpu", "cuda"):
+        td = ch.ContinuityTable(*(x.clone().to(d) for x in t))
+        q = torch.from_numpy(Q.view(np.int32)).to(d)
+        pair, _ = ch.locate(cfg, q)
+        hit, sidx = ch._stash_find(cfg, td, q, pair)
+        dhit, dsidx = ch._stash_find_dense(cfg, td, q, pair)
+        assert torch.equal(hit, dhit) and torch.equal(sidx, dsidx)
+        look = ch.lookup(cfg, td, q)
+        _, uok, _ = ch.update(cfg, td, Q, W, probe="kernel")
+        _, dok, _ = ch.delete(cfg, td, Q[::3], probe="kernel")
+        out.append((hit.cpu(), sidx.cpu(), look.slot.cpu(), uok.cpu(),
+                    dok.cpu(), convert.table_to_numpy(td)))
+    (*a, ta), (*b, tb) = out
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _assert_fields_equal(ta, tb)
+    assert bool(a[0].any())
+
+
+def test_stash_find_syncs_once(dev):
+    """The stash index reads one number back per call (its live-entry
+    count, the empty stash's gate), however many entries and queries."""
+    import warnings
+    cfg = ch.ContinuityConfig(num_buckets=2 ** 15, stash_frac=1 / 8)
+    n = int(cfg.num_pairs * cfg.slots_per_pair * 1.02)
+    rng = np.random.RandomState(11)
+    t = ch.create(cfg, "cuda")
+    ch.insert(cfg, t, ycsb.make_key(np.arange(n)),
+              ycsb.make_value(rng, n))
+    q = torch.from_numpy(ycsb.make_key(np.arange(0, 2 * n, 3)).view(
+        np.int32)).cuda()
+    pair, _ = ch.locate(cfg, q)
+    empty = ch.create(cfg, "cuda")
+    with warnings.catch_warnings(record=True):   # a process's first switch
+        torch.cuda.set_sync_debug_mode("warn")   # to "warn" reports a sync
+        torch.cuda.set_sync_debug_mode("default")
+    for table in (t, empty):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                hit, _ = ch._stash_find(cfg, table, q, pair)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert sum("synchroniz" in str(w.message) for w in caught) == 1
+        assert bool(hit.any()) == (table is t)
+    assert int((t.stash_meta != 0).sum()) > 4096   # past a small sort
+
+
+def test_device_restart_on_card_matches_cpu(dev):
+    """`store.recover` of a table (the failover restart) on the card gives
+    the CPU's table and report, repeated stash entries cleared."""
+    rng = np.random.RandomState(9)
+    K, V = ycsb.make_key(np.arange(46)), ycsb.make_value(rng, 46)
+    out = []
+    for d in ("cpu", "cuda"):
+        store = api.make_store("continuity", table_slots=40, device=d)
+        t, _ = store.insert(store.create(), K, V)
+        live = (t.stash_meta != 0).nonzero().squeeze(1)
+        free = (t.stash_meta == 0).nonzero().squeeze(1)
+        for f in ("stash_keys", "stash_meta"):
+            getattr(t, f)[free[0]] = getattr(t, f)[live[0]]
+        t2, rep = store.recover(t)
+        out.append((convert.table_to_numpy(t2), rep))
+    _assert_fields_equal(out[0][0], out[1][0])
+    assert out[0][1] == out[1][1] and out[1][1].duplicates_cleared == 1
+
+
+def test_device_routing_on_card_is_bit_exact(dev):
+    from repro_torch.cluster import Directory
+    rng = np.random.RandomState(10)
+    keys = np.concatenate([ycsb.make_key(np.arange(2 ** 19)), rng.randint(
+        0, 2 ** 32, size=(2 ** 19, 4), dtype=np.uint64).astype(np.uint32)])
+    for members in (("pm0", "pm1", "pm2", "pm3"), ("pm0", "pm1", "pm2",
+                                                    "pm3", "pmJ")):
+        d = Directory(members, replicas=2)
+        got = d.replica_sets_t(torch.from_numpy(keys.view(np.int32)).cuda())
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      d.replica_sets(keys))
+
+
+def test_cluster_drill_on_card_matches_cpu(dev):
+    """The --smoke cluster cell and a partition / stale / heal / resync
+    cell on the card equal the CPU's payloads field for field."""
+    from repro_torch.cluster import sim
+    cells = [sim.smoke_kwargs(True),
+             dict(num_records=160, num_ops=240, batch=40, nodes=3,
+                  workload="F", dist="hotspot", seed=4,
+                  events=(("partition", 60, "pm1"), ("stale", 80, "pm1"),
+                          ("heal", 120, "pm1"), ("resync", 160, "pm1")))]
+    for kw in cells:
+        got = sim.run_cluster(device="cuda", **kw)
+        want = sim.run_cluster(device="cpu", **kw)
+        assert got == want
+        assert got["committed_lost"] == 0
