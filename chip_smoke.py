@@ -36,13 +36,15 @@ Phases, in order:
    Table I of all three schemes (continuity 2 / 2 / 1, pfarm 5 / 5 / 5,
    level 2 / 2-4 / 1), reads per lookup from the verb plans and each
    scheme's rates.  Uncounted, on clones of each loaded table: every mode
-   of the serial walk against its plain version on the card's tensors and
-   timed beside its bound.
+   of the serial walk against its plain version (on a host copy: inserts
+   at 2**18, updates and deletes at 65,536; on the card's tensors at
+   2,048) and timed beside its bound.
 3d. The end-to-end simulator, launches counted from 0: ``run_ycsb`` on the
    card equals the CPU run key for key for continuity, level and pfarm x
    A-F at 800 records / 1,000 ops / batches of 250 (with the orderings of
    ``tests/test_rdma.py``), then the same cells at 1,048,576 records /
-   262,144 ops / batches of 4,096, their simulated ops/s and latencies
+   131,072 ops (32 rounds, cut from 64 for the smoke's time limit) /
+   batches of 4,096, their simulated ops/s and latencies
    (``LinkModel`` outputs) beside each cell's wall time on the card.
 3e. The continuity store's maintenance and crash-consistency surface, every
    store kernel's launch count set to 0 just before and read after: a fresh
@@ -81,6 +83,25 @@ Phases, in order:
    within 1/N + 5 %, the kill detected and promoted log-free; load,
    round, join, failover and audit seconds, the ``LinkModel``'s simulated
    ops/s and latencies, peak device memory.
+3g. The client cache and the chaos matrix, every store kernel's launch
+   count set to 0 just before and each probe / mutate launch on the card
+   held in place against its plain version: (a) the reference's own cells,
+   the fan-in ``--smoke`` cell (``cache.fanin``: continuity, 100 clients,
+   14 rounds x 16 ops, 2 writes per round, 1,200 records, 4 nodes, R 2,
+   hotspot 0.02 / 0.95, capacity 128, budget 12, ``trust_window`` 0, the
+   uncached and the cached pass) and the 14-cell chaos grid at seed 0
+   (``chaos.matrix``, ``smoke`` profile): every payload on the card equals
+   the CPU's, field for field, and the fan-in's and the matrix's gates
+   hold; (b) the same fan-in cell at phase 3f (b)'s 50,331,648 records
+   (nodes of 62,914,816 slots by the fan-in's formula, the load inserted
+   in batches of 65,536, the two passes sharing it): no stale read served,
+   no wrong read in either pass, every stale ack detected, the join within
+   1/N + 5 %, log-free failover, the request stream's self-check; hit
+   rate, read doorbell and byte reductions and the ``LinkModel`` p50 / p99
+   recorded (the fan-in's performance gates are held on (a) only), the
+   host seconds of load, rounds, resync, join and failover, peak device
+   memory.  (a)'s card runs go in a second process on the card beside
+   (b), under their own launch counts and in-place checks (summed).
 4. Paged attention vs plain: the kernel against ``paged_attn_ref`` in
    float32 (2e-5) and bfloat16 (6e-2) on the shapes of
    ``tests/test_kernels.py``, G = 1 and 8, lengths on page boundaries and
@@ -115,20 +136,26 @@ Phases, in order:
 7. Report: one JSON line of every kernel's launches (the TPU kernels' on
    the serving path, phase 5; the serial walk's on the baselines path,
    phase 3c; probe and mutate also on the cluster path, phase 3f, as
-   ``cluster_launches``), error, times and bound; the card's name and
+   ``cluster_launches``, and on the cache and chaos path, phase 3g, as
+   ``cache_launches``), error, times and bound; the card's name and
    power limit;
    last ``{"ok": true, "device": {...}}``.
 
-Any failed check raises.  Without a CUDA device it exits non-zero and
-prints no result.
+The CPU twins that phases 3e ((c)'s small split), 3f (a) and 3g (a) hold
+the card against run in a spawned process of their own from the start;
+every process the script starts is ended before it exits.  Any failed
+check raises.  Without a CUDA device it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -167,11 +194,12 @@ STEP_REPS = 9                  # timings of the whole decode step
 # phases 3b-3d: the baselines and the end-to-end simulator
 BASE_SLOTS = 83_886_080        # the continuity cell's main slots
 WALK_B = 2_048                 # the serial walk's timed batch
+WALK_INSERT_CHECK_B = 2 ** 18  # the walk's full-size insert check (host copy)
 CHASE_STEPS = 65_536           # dependent loads timed for the walk's floor
 CHASE_COLD_STEPS = 8_192       # ... from a cold L2 (few lines touched twice)
 E2E_SCHEMES = ("continuity", "level", "pfarm")
 E2E_SMALL = dict(num_records=800, num_ops=1000, batch=250)
-E2E_LARGE = dict(num_records=1_048_576, num_ops=262_144, batch=4_096)
+E2E_LARGE = dict(num_records=1_048_576, num_ops=131_072, batch=4_096)
 
 
 def _check(cond, what: str) -> None:
@@ -185,6 +213,86 @@ def _smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+TWIN_THREADS = 2               # torch CPU threads of the twins' process
+CHILD_WAIT_S = 900             # the longest wait for a child process
+
+
+def _cpu_twin_runs(torch) -> dict:
+    """{(phase, name): fn(device)}: the runs whose card payloads phases
+    3e, 3f (a) and 3g (a) hold against the same run on the CPU."""
+    from repro_torch import api, convert
+    from repro_torch.data import ycsb
+    runs = {("3e", "small split"): lambda d: _small_split(
+        torch, api, convert, ycsb, d)}
+    runs.update({("3f", n): fn for n, fn in _cluster_runs().items()})
+    runs.update({("3g", n): fn for n, fn in _cache_runs().items()})
+    return runs
+
+
+def _twins_main(queue) -> None:
+    """The twins' process: every CPU twin in phase order, as
+    {(phase, name): (payload, seconds)}."""
+    def run():
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+        torch.set_num_threads(TWIN_THREADS)
+        out = {}
+        for key, fn in _cpu_twin_runs(torch).items():
+            t0 = time.perf_counter()
+            out[key] = (fn("cpu"), time.perf_counter() - t0)
+        return out
+    _child_result(queue, run)
+
+
+def _child_result(queue, run) -> None:
+    """Put ("ok", run()) or ("error", its traceback) on ``queue``."""
+    try:
+        queue.put(("ok", run()))
+    except BaseException:
+        queue.put(("error", traceback.format_exc()))
+
+
+class _Child:
+    """``target(queue)`` in a spawned process (no state shared with this
+    one: a process of its own on the same card, or on the CPU only);
+    ``result`` waits for what it puts, ``stop`` ends it in any case."""
+
+    def __init__(self, target, what: str):
+        ctx = multiprocessing.get_context("spawn")
+        self._what = what
+        self._queue = ctx.Queue()
+        self._proc = ctx.Process(target=target, args=(self._queue,),
+                                 daemon=True)
+        self._proc.start()
+
+    def result(self):
+        status, out = self._queue.get(timeout=CHILD_WAIT_S)
+        _check(status == "ok", f"{self._what} ran: {out}")
+        self._proc.join()
+        return out
+
+    def stop(self) -> None:
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join()
+
+
+class _Twins(_Child):
+    """The CPU twins, computed in their own process while this one drives
+    the card (they need no card: the CPU runs take their kernels' plain
+    versions); ``get`` waits for them the first time it is called."""
+
+    def __init__(self):
+        super().__init__(_twins_main, "the CPU twins")
+        self._out = None
+
+    def get(self, phase: str, name: str):
+        """(payload, seconds in the twins' process)."""
+        if self._out is None:
+            self._out = self.result()
+        return self._out[(phase, name)]
 
 
 def _timed(torch, fn):
@@ -864,17 +972,18 @@ def _walk_floor(torch, scheme, table, card) -> dict:
 
 def _walk_timing(torch, scheme, store, table, card) -> tuple:
     """The serial walk on the loaded full-size table, uncounted: every mode
-    held against the plain version at the main path's batch size (insert
-    at LOAD_BATCH, update and delete at QUERY_B), on a clone and a host
-    copy; then per mode one batch of WALK_B held against the plain version
-    on the card's tensors (its time is the report's plain_ms), the
+    held against the plain version on a clone and a host copy (insert at
+    WALK_INSERT_CHECK_B, a quarter of the load's batch, for the smoke's
+    time limit; update and delete at the main path's QUERY_B); then per
+    mode one batch of WALK_B held against the plain version on the card's
+    tensors (its time is the report's plain_ms), the
     kernel's device time over fresh batches of WALK_B, and its latency
     floor.  Returns ({op: numbers}, the floor, max_abs_err)."""
     from repro_torch.kernels import scan_walk
     cfg, rng = store.cfg, np.random.RandomState(SEED + 8)
     out, err = {}, 0
     for op in ("insert", "update", "delete"):
-        B = LOAD_BATCH if op == "insert" else QUERY_B
+        B = WALK_INSERT_CHECK_B if op == "insert" else QUERY_B
         ids = (4 * N_RECORDS + np.arange(B) if op == "insert" else
                np.where(rng.rand(B) < 0.9, rng.choice(N_RECORDS, B),
                         N_RECORDS + rng.choice(N_RECORDS, B)))
@@ -1389,7 +1498,8 @@ def _in_situ_segments(torch, run):
         K.probe_segments, K.mutate_segments = saved
 
 
-def maintenance_phase(torch, api, ch, ycsb, keys, vals, card) -> tuple:
+def maintenance_phase(torch, api, ch, ycsb, keys, vals, card,
+                      twins) -> tuple:
     """Phase 3e, with every store-kernel call held in place against its
     plain version; returns (its kernels' launch counts, set to 0 before;
     the in-place checks)."""
@@ -1398,7 +1508,7 @@ def maintenance_phase(torch, api, ch, ycsb, keys, vals, card) -> tuple:
     mutate.mutate_segments.launches = 0
     scan_walk.scan_walk.launches = 0
     _, checks = _in_situ_segments(torch, lambda: _maintenance(
-        torch, api, ch, ycsb, keys, vals, card))
+        torch, api, ch, ycsb, keys, vals, card, twins))
     launches = {"probe_segments": probe.probe_segments.launches,
                 "mutate_segments": mutate.mutate_segments.launches,
                 "scan_walk": scan_walk.scan_walk.launches}
@@ -1414,7 +1524,7 @@ def maintenance_phase(torch, api, ch, ycsb, keys, vals, card) -> tuple:
     return launches, checks
 
 
-def _maintenance(torch, api, ch, ycsb, keys, vals, card) -> None:
+def _maintenance(torch, api, ch, ycsb, keys, vals, card, twins) -> None:
     """The work of phase 3e, (a)-(d)."""
     from repro_torch import convert
     from repro_torch.consistency import matrix
@@ -1495,7 +1605,7 @@ def _maintenance(torch, api, ch, ycsb, keys, vals, card) -> None:
     del rs, table
     torch.cuda.empty_cache()
     gpu = _small_split(torch, api, convert, ycsb, "cuda")
-    cpu = _small_split(torch, api, convert, ycsb, "cpu")
+    cpu = twins.get("3e", "small split")[0]
     _check(all(np.array_equal(a[f], b[f]) for a, b in zip(gpu[:3], cpu[:3])
                for f in a), "the small split on the card equals the CPU's "
            "byte for byte (source, drained source, grown table)")
@@ -1505,7 +1615,8 @@ def _maintenance(torch, api, ch, ycsb, keys, vals, card) -> None:
           f"{SMALL_SPLIT_BUCKETS} buckets at load {SMALL_SPLIT_LOAD} (stash "
           f"1/8, {gpu[5]} stash entries), {gpu[3]} of {gpu[4]} records "
           f"moved over {gpu[7].num_pairs} cohorts: card {gpu[6]:.3f} s, CPU "
-          f"{cpu[6]:.3f} s, tables byte-equal [{card}]", flush=True)
+          f"{cpu[6]:.3f} s (in the twins' process), tables byte-equal "
+          f"[{card}]", flush=True)
 
     # -- (d) crash consistency: the matrix and the baselines' resize -----
     rows_gpu, t_mat = _timed(torch, lambda: matrix.run_rows(device="cuda"))
@@ -1593,13 +1704,11 @@ def _stash_cell(d):
                            **sim.smoke_kwargs(True))
 
 
-def _cluster_small(torch, card) -> str:
-    """(a): at the reference's smoke sizes, every payload on the card
-    equals the CPU's, field for field."""
-    from repro_torch import api
+def _cluster_runs() -> dict:
+    """(a)'s runs, each ``fn(device)``."""
     from repro_torch.cluster import sim
     from repro_torch.consistency import matrix
-    runs = {
+    return {
         "run_cluster": lambda d: sim.run_cluster(device=d,
                                                  **sim.smoke_kwargs(True)),
         "durability_drill": lambda d: sim.durability_drill(device=d),
@@ -1607,15 +1716,26 @@ def _cluster_small(torch, card) -> str:
         "matrix.run_rows": lambda d: matrix.run_rows(device=d),
         "stash cell": _stash_cell,
     }
+
+
+def _card_vs_twins(torch, phase, runs, twins) -> tuple:
+    """Each run on the card against its CPU twin, field for field: returns
+    ({name: card payload}, timing lines)."""
     out, lines = {}, []
     for name, fn in runs.items():
         gpu, t_gpu = _timed(torch, lambda: fn("cuda"))
-        t0 = time.perf_counter()
-        cpu = fn("cpu")
-        t_cpu = time.perf_counter() - t0
+        cpu, t_cpu = twins.get(phase, name)
         _check(gpu == cpu, f"{name} on the card equals the CPU's payload")
         out[name] = gpu
         lines.append(f"{name} card {t_gpu:.2f} s / CPU {t_cpu:.2f} s")
+    return out, lines
+
+
+def _cluster_small(torch, card, twins) -> str:
+    """(a): at the reference's smoke sizes, every payload on the card
+    equals the CPU's, field for field."""
+    from repro_torch import api
+    out, lines = _card_vs_twins(torch, "3f", _cluster_runs(), twins)
     cell = out["run_cluster"]
     _check(cell["committed"] == 600 and cell["committed_lost"] == 0
            and cell["rebalance_within_bound"] and cell["failover_detected"],
@@ -1637,7 +1757,8 @@ def _cluster_small(torch, card) -> str:
     _check(over, "a node of the stash cell holds more items than its main "
            "and extension slots (its stash entries are live)")
     join = next(e for e in cell["events"] if e["event"] == "join")
-    print(f"phase 3f (a): card == CPU field for field: {'; '.join(lines)}; "
+    print(f"phase 3f (a): card == CPU field for field (the CPU in the "
+          f"twins' process): {'; '.join(lines)}; "
           f"smoke cell {cell['committed']} committed, "
           f"{cell['committed_lost']} lost, join moved_frac "
           f"{join['moved_frac']:.4f} <= {join['bound']}, "
@@ -1704,7 +1825,7 @@ def _cluster_full(torch, card) -> dict:
     return cell
 
 
-def cluster_phase(torch, card) -> tuple:
+def cluster_phase(torch, card, twins) -> tuple:
     """Phase 3f, with every store-kernel call held in place against its
     plain version; returns (its kernels' launch counts, set to 0 before;
     the in-place checks)."""
@@ -1713,7 +1834,7 @@ def cluster_phase(torch, card) -> tuple:
     mutate.mutate_segments.launches = 0
     scan_walk.scan_walk.launches = 0
     _, checks = _in_situ_segments(torch, lambda: (
-        _cluster_small(torch, card), _cluster_full(torch, card)))
+        _cluster_small(torch, card, twins), _cluster_full(torch, card)))
     launches = {"probe_segments": probe.probe_segments.launches,
                 "mutate_segments": mutate.mutate_segments.launches}
     for name, n in launches.items():
@@ -1722,6 +1843,185 @@ def cluster_phase(torch, card) -> tuple:
         _check(c["calls"] == launches[name] > 0, f"every {name} launch of "
                f"the cluster path was held against its plain version")
         print(f"phase 3f: {name} held against its plain version at each of "
+              f"its {c['calls']} launches on this path, batches "
+              f"{min(c['batches'])}-{max(c['batches'])}, tables of "
+              f"{sorted(c['pairs'])} pairs, max_abs_err {c['max_abs_err']} "
+              f"[{card}]", flush=True)
+    return launches, checks
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the client cache and the chaos matrix
+# ---------------------------------------------------------------------------
+
+FANIN_RECORDS = 50_331_648     # phase 3f (b)'s record count (paper §V-A)
+FANIN_LOAD_BATCH = 65_536      # (b)'s insert batch (the reference: 256)
+FANIN_EVENTS = ["partition", "stale", "heal", "resync", "join", "kill",
+                "failover"]
+
+
+def _cache_runs() -> dict:
+    """(a)'s runs, each ``fn(device)``."""
+    from repro_torch.cache import fanin
+    from repro_torch.chaos import matrix
+    return {
+        "fan-in --smoke": lambda d: fanin.run_fanin(
+            device=d, **fanin.smoke_kwargs(True)),
+        "chaos matrix": lambda d: matrix.run_matrix(
+            seed=0, profile="smoke", verbose=False, device=d),
+    }
+
+
+def _cache_small_main(queue) -> None:
+    """(a)'s card runs in a process of their own on the card, while the
+    parent drives (b): ({name: (payload, seconds)}, launches, in-place
+    checks), the launch counts set to 0 just before."""
+    def run():
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+        from repro_torch.kernels import mutate, probe
+        probe.probe_segments.launches = 0
+        mutate.mutate_segments.launches = 0
+        out, checks = _in_situ_segments(torch, lambda: {
+            name: _timed(torch, lambda: fn("cuda"))
+            for name, fn in _cache_runs().items()})
+        return out, {"probe_segments": probe.probe_segments.launches,
+                     "mutate_segments": mutate.mutate_segments.launches}, \
+            checks
+    _child_result(queue, run)
+
+
+def _cache_small(card, twins, runs) -> None:
+    """(a): the reference's own cells — the fan-in ``--smoke`` cell and the
+    chaos grid at seed 0 with the ``smoke`` profile — on the card (``runs``:
+    {name: (payload, seconds)}) equal to the CPU in every payload field,
+    with their gates met."""
+    from repro_torch.cache import fanin
+    out, lines = {}, []
+    for name, (gpu, t_gpu) in runs.items():
+        cpu, t_cpu = twins.get("3g", name)
+        _check(gpu == cpu, f"{name} on the card equals the CPU's payload")
+        out[name] = gpu
+        lines.append(f"{name} card {t_gpu:.2f} s / CPU {t_cpu:.2f} s")
+    cell, grid = out["fan-in --smoke"], out["chaos matrix"]
+    bad = fanin.check_gates(cell)
+    _check(not bad, f"the fan-in cell's gates hold ({bad})")
+    _check(grid["ok"] and all(grid["gates"].values())
+           and len(grid["cells"]) == 14, "the chaos matrix: 14 cells, "
+           "every gate holds")
+    un, ca = cell["uncached"], cell["cached"]
+    t = grid["totals"]
+    print(f"phase 3g (a): card == CPU field for field (the card's runs "
+          f"in a second process beside (b), the CPU's in the twins' "
+          f"process): {'; '.join(lines)}; "
+          f"fan-in 100 clients x 14 rounds x 16 ops, 1,200 records: hit rate "
+          f"{ca['hit_rate']:.4f} (floor {fanin.GATES['hit_rate_floor']}), "
+          f"read doorbells {un['read_doorbells']} -> {ca['read_doorbells']} "
+          f"({cell['doorbell_reduction']:.4f}x), LinkModel p99 "
+          f"{un['p99_us']:.4f} -> {ca['p99_us']:.4f} us (ratio "
+          f"{cell['p99_ratio']:.4f}), stale served {ca['stale_served']}; "
+          f"chaos matrix {len(grid['cells'])} cells ok, lost "
+          f"{t['committed_lost']}, stale acks {t['stale_acks_detected']}/"
+          f"{t['stale_acks_injected']}, retries {t['retries']:.0f}, give-ups "
+          f"{t['give_ups']:.0f} [{card}]", flush=True)
+
+
+def _cache_full(torch, card) -> dict:
+    """(b): the fan-in cell at the deployment's record count, every other
+    parameter the ``--smoke`` cell's.  The guarantees are checked; hit
+    rate, reductions and p99 are recorded, not gated."""
+    from repro_torch import api
+    from repro_torch.cache import fanin
+    kw = dict(fanin.smoke_kwargs(True), num_records=FANIN_RECORDS)
+    slots = int(FANIN_RECORDS * 2 / 4 * 2.5) + 256
+    cfg = api.make_store("continuity", table_slots=slots, device="cpu").cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tm = {}
+    cell, t_all = _timed(torch, lambda: fanin.run_fanin(
+        "continuity", device="cuda", load_batch=FANIN_LOAD_BATCH,
+        timings=tm, **kw))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    un, ca = cell["uncached"], cell["cached"]
+
+    def secs(part):
+        return ", ".join(f"{sum(tm[m].get(part, [])):.3f}"
+                         for m in ("uncached", "cached"))
+    ev = {e["event"]: e for e in ca["events"]}
+    print(f"phase 3g (b): fan-in at {FANIN_RECORDS} records, 4 nodes (+ "
+          f"pmJ), R 2, continuity {cfg.num_pairs} pairs / "
+          f"{cfg.stash_slots} stash slots per node (node_slots {slots}), "
+          f"100 clients x 14 rounds x 16 ops, 2 writes per round, hotspot "
+          f"0.02 / 0.95, capacity 128, budget 12, trust_window 0: hit rate "
+          f"{ca['hit_rate']:.4f}, read doorbells {un['read_doorbells']} -> "
+          f"{ca['read_doorbells']} ({cell['doorbell_reduction']:.4f}x), "
+          f"read bytes {un['read_bytes']} -> {ca['read_bytes']} "
+          f"({cell['bytes_reduction']:.4f}x), LinkModel p50 "
+          f"{un['p50_us']:.4f} -> {ca['p50_us']:.4f} us, p99 "
+          f"{un['p99_us']:.4f} -> {ca['p99_us']:.4f} us (ratio "
+          f"{cell['p99_ratio']:.4f}); gates as recorded, not held here: "
+          f"{fanin.check_gates(cell)}; stale served {ca['stale_served']}, "
+          f"wrong reads {un['wrong_reads']} / {ca['wrong_reads']}, "
+          f"unserved {un['unserved']} / {ca['unserved']}; cache "
+          f"{ca['cache']}; events {ca['events']}; host seconds (uncached, "
+          f"cached): load {tm['load'][0]:.3f} (shared), clone "
+          f"{tm['clone'][0]:.3f}, rounds {secs('round')} (of them the "
+          f"clients' reads {secs('reads')}), resync {secs('resync')}, join "
+          f"copy {secs('join_copy')} + cutover {secs('join_cutover')}, "
+          f"failover {secs('failover')}; whole cell {t_all:.1f} s; peak "
+          f"device memory {peak:.3f} GiB [{card}]", flush=True)
+    for name, p in (("uncached", un), ("cached", ca)):
+        _check([e["event"] for e in p["events"]] == FANIN_EVENTS,
+               f"the {name} pass fired the whole chaos schedule")
+        _check(p["wrong_reads"] == 0, f"no wrong read in the {name} pass")
+        ch = p["chaos"]
+        _check(ch["stale_acks_detected"] == ch["stale_acks_injected"] > 0,
+               f"every stale ack of the {name} pass detected")
+        pe = {e["event"]: e for e in p["events"]}
+        _check(pe["join"]["within_bound"], f"the {name} pass's join moved "
+               f"<= 1/N + 5 %")
+        _check(pe["failover"]["recovery_log_free"], f"the {name} pass's "
+               f"failover recovered log-free")
+    _check(ca["stale_served"] == 0, "the cache served no stale read")
+    _check(cell["stream_check"]["ok"], "the request stream's self-check")
+    _check(ev["resync"]["stale_acks_detected"]
+           == ev["stale"]["acks_injected"], "resync detected every stale ack")
+    return cell
+
+
+def cache_phase(torch, card, twins) -> tuple:
+    """Phase 3g, with every store-kernel call held in place against its
+    plain version: (a)'s card runs in a second process on the card while
+    this one drives (b) (both are host-bound; neither times a kernel).
+    Returns (its kernels' launch counts, set to 0 before in both
+    processes and summed; the in-place checks, merged)."""
+    from repro_torch.kernels import mutate, probe, scan_walk
+    probe.probe_segments.launches = 0
+    mutate.mutate_segments.launches = 0
+    scan_walk.scan_walk.launches = 0
+    small = _Child(_cache_small_main, "phase 3g (a) on the card")
+    try:
+        _, checks = _in_situ_segments(torch, lambda: _cache_full(torch, card))
+        runs, small_launches, small_checks = small.result()
+    finally:
+        small.stop()
+    _cache_small(card, twins, runs)
+    launches = {"probe_segments": probe.probe_segments.launches,
+                "mutate_segments": mutate.mutate_segments.launches}
+    for name, c in small_checks.items():
+        launches[name] += small_launches[name]
+        mine = checks[name]
+        mine["calls"] += c["calls"]
+        mine["batches"] |= c["batches"]
+        mine["pairs"] |= c["pairs"]
+        mine["max_abs_err"] = max(mine["max_abs_err"], c["max_abs_err"])
+    for name, n in launches.items():
+        _check(n > 0, f"the cache and chaos path launched {name}")
+    for name, c in checks.items():
+        _check(c["calls"] == launches[name] > 0, f"every {name} launch of "
+               f"the cache and chaos path was held against its plain version")
+        _check(c["max_abs_err"] == 0, f"{name} exact on the cache path")
+        print(f"phase 3g: {name} held against its plain version at each of "
               f"its {c['calls']} launches on this path, batches "
               f"{min(c['batches'])}-{max(c['batches'])}, tables of "
               f"{sorted(c['pairs'])} pairs, max_abs_err {c['max_abs_err']} "
@@ -2280,6 +2580,16 @@ def main() -> int:
               "on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (fails here, alone, without the repo)
+    # the CPU twins of phases 3e-3g run in their own process meanwhile
+    twins = _Twins()
+    try:
+        return _smoke(torch, twins)
+    finally:
+        twins.stop()
+
+
+def _smoke(torch, twins) -> int:
     from repro_torch import api
     from repro_torch.core import continuity as ch
     from repro_torch.data import ycsb
@@ -2344,7 +2654,7 @@ def main() -> int:
     # -- phase 3e: maintenance and crash consistency, launches counted ---
     t0 = time.perf_counter()
     m_launches, m_checks = maintenance_phase(torch, api, ch, ycsb, keys,
-                                             vals, card)
+                                             vals, card, twins)
     del keys, vals
     torch.cuda.empty_cache()
     sim_batcher_check(torch, card)
@@ -2353,10 +2663,17 @@ def main() -> int:
 
     # -- phase 3f: the cluster, launches counted -------------------------
     t0 = time.perf_counter()
-    c_launches, c_checks = cluster_phase(torch, card)
+    c_launches, c_checks = cluster_phase(torch, card, twins)
     torch.cuda.empty_cache()
     print(f"cluster path: {time.perf_counter() - t0:.1f} s, kernel "
           f"launches {c_launches} [{card}]", flush=True)
+
+    # -- phase 3g: the client cache and the chaos matrix, launches counted -
+    t0 = time.perf_counter()
+    g_launches, g_checks = cache_phase(torch, card, twins)
+    torch.cuda.empty_cache()
+    print(f"cache and chaos path: {time.perf_counter() - t0:.1f} s, kernel "
+          f"launches {g_launches} [{card}]", flush=True)
     walk_err = max([walk_err] + [t[2] for t in walk_timing.values()])
     ins, floor = walk_timing["level"][0]["insert"], walk_timing["level"][1]
     # latency_floor_ms: WALK_B dependent trips at the warm token chase's
@@ -2387,11 +2704,13 @@ def main() -> int:
     launches["scan_walk"] = walk_launches
     for r in rows:
         r["launches"] = launches[r["name"]]
-        if r["name"] in m_checks:      # phases 3e and 3f's in-place checks
+        if r["name"] in m_checks:      # phases 3e-3g's in-place checks
             r["max_abs_err"] = max(r["max_abs_err"],
                                    m_checks[r["name"]]["max_abs_err"],
-                                   c_checks[r["name"]]["max_abs_err"])
+                                   c_checks[r["name"]]["max_abs_err"],
+                                   g_checks[r["name"]]["max_abs_err"])
             r["cluster_launches"] = c_launches[r["name"]]
+            r["cache_launches"] = g_launches[r["name"]]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

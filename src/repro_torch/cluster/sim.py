@@ -484,7 +484,8 @@ def main(argv=None) -> int:
     p.add_argument("--nodes", type=int, default=4)
     p.add_argument("--replicas", type=int, default=2)
     p.add_argument("--dist", default=None, choices=("zipf", "hotspot"),
-                   help="request distribution (default: zipf)")
+                   help="request distribution (default: zipf here, the "
+                        "fan-in drill's own hotspot default under --cache)")
     p.add_argument("--seed", type=int, default=0,
                    help="the ONE seed every stream derives from (echoed "
                         "in the JSON payload for bit-exact replay)")
@@ -502,15 +503,24 @@ def main(argv=None) -> int:
                         "repro_torch.obs.report BASE` prints the "
                         "continuity-vs-pfarm p50 ratio")
     p.add_argument("--cache", action="store_true",
-                   help="the client-cache fan-in drill (not ported)")
+                   help="run the client-cache fan-in drill instead "
+                        "(`repro_torch.cache.fanin`): O(100) clients behind "
+                        "version-stamped caches vs the uncached baseline")
     p.add_argument("--clients", type=int, default=100,
                    help="fan-in client count (only with --cache)")
     args = p.parse_args(argv)
 
     if args.cache:
-        raise NotImplementedError(
-            "--cache runs the client-cache fan-in drill (cache/fanin.py), "
-            "which is not ported yet: ROADMAP.md Queue 1 #5")
+        from repro_torch.cache import fanin
+        fwd = ["--scheme", args.scheme, "--clients", str(args.clients),
+               "--seed", str(args.seed), "--device", args.device]
+        if args.dist is not None:
+            fwd += ["--dist", args.dist]
+        if args.smoke:
+            fwd.append("--smoke")
+        if args.json:
+            fwd += ["--json", args.json]
+        return fanin.main(fwd)
 
     kw = smoke_kwargs(args.smoke)
 

@@ -3,8 +3,9 @@
 Port of ``repro.core.hashfn``: murmur3-style ``fmix32`` + boost-style lane
 combining, bit for bit.  Inputs are int32 word tensors (uint32 bit
 patterns) or int64 word values; outputs are int64 values in
-``[0, 2**32)`` (see ``repro_torch.core.words``).  Products are split into
-16-bit halves so no intermediate leaves the int64 range.
+``[0, 2**32)`` (see ``repro_torch.core.words``).  Products of two words
+wrap mod 2**64 in int64 (as the directory's 64-bit hashing does), which
+leaves their low 32 bits exact.
 """
 
 from __future__ import annotations
@@ -22,18 +23,25 @@ _GOLDEN = 0x9E3779B9
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     """``(x * c) mod 2**32`` for word values x and a 32-bit constant c."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & MASK32
+    return (x * c) & MASK32
 
 
 def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & MASK32
+    return _rotl(x, r) & MASK32
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    """The rotation in the low 32 bits, with bits above them left for a
+    following product to drop (``_mul32`` keeps the low 32 bits only)."""
+    return (x << r) | (x >> (32 - r))
 
 
 def fmix32(h: torch.Tensor) -> torch.Tensor:
     """murmur3 finalizer: full-avalanche 32-bit mixer."""
-    h = u32(h)
+    return _fmix(u32(h))
+
+
+def _fmix(h: torch.Tensor) -> torch.Tensor:
     h = h ^ (h >> 16)
     h = _mul32(h, _FMIX1)
     h = h ^ (h >> 13)
@@ -48,16 +56,14 @@ def hash128(key: torch.Tensor, seed: int = 0) -> torch.Tensor:
     """
     if key.shape[-1] != 4:
         raise ValueError(f"keys need 4 lanes, got shape {tuple(key.shape)}")
-    k = u32(key)
-    h = torch.full(k.shape[:-1], (seed ^ 16) & MASK32, dtype=torch.int64,
-                   device=k.device)
-    for i in range(4):
-        lane = _mul32(k[..., i], _C1)
-        lane = _rotl32(lane, 15)
-        lane = _mul32(lane, _C2)
-        h = _rotl32(h ^ lane, 13)
-        h = (_mul32(h, 5) + 0xE6546B64) & MASK32
-    return fmix32(h)
+    # each lane's premix is independent of the chain: all four at once
+    lanes = _mul32(_rotl(_mul32(u32(key), _C1), 15), _C2).unbind(-1)
+    h = lanes[0] ^ ((seed ^ 16) & MASK32)
+    for i, lane in enumerate(lanes):
+        if i:
+            h = h ^ lane
+        h = (_rotl(h, 13) * 5 + 0xE6546B64) & MASK32
+    return _fmix(h)
 
 
 def hash128_2(key: torch.Tensor) -> torch.Tensor:

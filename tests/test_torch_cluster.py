@@ -387,9 +387,23 @@ def test_run_cluster_cells_match_reference(case):
     assert port["committed_lost"] == 0
 
 
-def test_cache_drill_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        sim.main(["--cache", "--device", "cpu"])
+def test_cache_drill_is_not_ported(monkeypatch):
+    """``--cache`` forwards to the fan-in drill as the reference's does,
+    with the device added (the drill's run against the reference's:
+    ``tests/test_torch_fanin.py``)."""
+    from repro.cache import fanin as jfanin
+    from repro_torch.cache import fanin
+    seen = {}
+    monkeypatch.setattr(fanin, "main", lambda a: seen.setdefault("port", a)
+                        and 0)
+    monkeypatch.setattr(jfanin, "main", lambda a: seen.setdefault("ref", a)
+                        and 0)
+    argv = ["--cache", "--smoke", "--dist", "zipf", "--clients", "7",
+            "--seed", "3", "--json", "out.json"]
+    assert sim.main(argv + ["--device", "cpu"]) == jsim.main(argv) == 0
+    ref = seen["ref"]
+    assert seen["port"] == ref[:6] + ["--device", "cpu"] + ref[6:]
+    assert "--smoke" in ref and "out.json" in ref
 
 
 # ---------------------------------------------------------------------------

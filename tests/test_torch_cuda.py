@@ -1041,3 +1041,30 @@ def test_cluster_drill_on_card_matches_cpu(dev):
         want = sim.run_cluster(device="cpu", **kw)
         assert got == want
         assert got["committed_lost"] == 0
+
+
+def test_tiny_fanin_on_card_matches_cpu(dev):
+    """``tests/test_cache.py``'s tiny fan-in cell with the full chaos
+    schedule: the card's payload equals the CPU's field for field."""
+    from repro_torch.cache import fanin
+    kw = dict(clients=6, rounds=7, ops_per_round=6, writes_per_round=1,
+              num_records=300, nodes=3, replicas=2, budget=None,
+              events=[(2, "partition", "primary"), (2, "stale", ""),
+                      (3, "heal", ""), (4, "resync", ""),
+                      (5, "kill", "primary"), (6, "failover", "")])
+    got = fanin.run_fanin("continuity", device="cuda", **kw)
+    want = fanin.run_fanin("continuity", device="cpu", **kw)
+    assert got == want
+    assert got["cached"]["stale_served"] == 0
+    assert got["cached"]["wrong_reads"] == got["uncached"]["wrong_reads"] == 0
+
+
+@pytest.mark.parametrize("name,workload", [("partition_fence", "E"),
+                                           ("timeout_giveup", "A")])
+def test_chaos_cells_on_card_match_cpu(dev, name, workload):
+    from repro_torch.chaos import scenarios
+    got = scenarios.run_scenario(name, workload=workload, seed=2,
+                                 device="cuda")
+    want = scenarios.run_scenario(name, workload=workload, seed=2,
+                                  device="cpu")
+    assert got == want and got["ok"], got["checks"]
