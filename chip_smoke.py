@@ -37,13 +37,13 @@ Phases, in order:
    level 2 / 2-4 / 1), reads per lookup from the verb plans and each
    scheme's rates.  Uncounted, on clones of each loaded table: every mode
    of the serial walk against its plain version (on a host copy: inserts
-   at 2**18, updates and deletes at 65,536; on the card's tensors at
+   at 2**17, updates and deletes at 65,536; on the card's tensors at
    2,048) and timed beside its bound.
 3d. The end-to-end simulator, launches counted from 0: ``run_ycsb`` on the
    card equals the CPU run key for key for continuity, level and pfarm x
    A-F at 800 records / 1,000 ops / batches of 250 (with the orderings of
    ``tests/test_rdma.py``), then the same cells at 1,048,576 records /
-   131,072 ops (32 rounds, cut from 64 for the smoke's time limit) /
+   65,536 ops (16 rounds, cut from 64 for the smoke's time limit) /
    batches of 4,096, their simulated ops/s and latencies
    (``LinkModel`` outputs) beside each cell's wall time on the card.
 3e. The continuity store's maintenance and crash-consistency surface, every
@@ -82,7 +82,10 @@ Phases, in order:
    ops and kill ``primary`` at two thirds: zero committed loss, the join
    within 1/N + 5 %, the kill detected and promoted log-free; load,
    round, join, failover and audit seconds, the ``LinkModel``'s simulated
-   ops/s and latencies, peak device memory.
+   ops/s and latencies, peak device memory.  (b) runs in a process of its
+   own on the card from the start of phase 3d (beside 3d, 3e, 3f (a) and
+   3g, all host-bound and timing no kernel), under its own launch counts
+   and in-place checks (added to (a)'s); its report is read after 3g.
 3g. The client cache and the chaos matrix, every store kernel's launch
    count set to 0 just before and each probe / mutate launch on the card
    held in place against its plain version: (a) the reference's own cells,
@@ -133,17 +136,48 @@ Phases, in order:
    prefill's, the 63 steps' and the releases'.
 6. The continuous batcher on the same weights answers 48 requests in 32
    slots.
+6b. The other families at full width, through ``launch/serve``'s
+   functions, every launch count set to 0 before each: (a)
+   granite-moe-3b-a800m (32 layers, d 1536, 24 / 8 heads of 64, 40
+   experts top-8 of d_ff 512, vocab 49,155, tied; bf16 from a seeded
+   generator): 16 prompts of 512 tokens prefilled, 32 greedy decode steps
+   against the hash-paged pool (page size 16), page tables exact against
+   the host's bump allocation; one more step with every layer's kernel
+   attention (D 64, G 3) held in place against the plain version and the
+   share of MoE assignments dropped at B 16, the whole step timed; every
+   sequence released; a float32 twin (4 sequences, 512-token prompts, 8
+   steps, capacity factor num_experts / top_k so nothing drops) against
+   its own forward (3e-3 / 1e-3); the attention kernel timed at this
+   decode shape beside its bound, plain version and SDPA.  (b) mamba2-370m
+   (48 layers, d 1024, d_state 128): in float32, 8 prompts of 256 tokens
+   prefilled recurrently and 32 decode steps, every step's logits held
+   against the chunked ``ssd_forward``'s over the same 288 tokens
+   (3e-3 / 1e-3); then 32 bf16 steps timed (the launcher's step, a CUDA
+   graph of ``serve_step``, ``launch.serve.GraphedStep``) beside 8 eager
+   ``serve_step`` calls; no kernel launched.  (c) hymba-1.5b (32 layers,
+   d 1600, 25 / 5 heads of 64, window 1,024, global layers {0, 16, 31},
+   d_state 16): in float32, 2 sequences run recurrently over 1,104 tokens
+   (every ring wrapped), every step held against the forward (banded
+   window attention, chunked SSD); the same tokens with the ring slot
+   shifted by one must leave that tolerance; then 32 bf16 steps timed as
+   (b)'s; no kernel launched.  (d) The smoke twins of all ten configs,
+   one prefill (from embeddings for musicgen and llava) or recurrent pass
+   plus 8 decode steps on the card, equal to the same run in the CPU
+   twins' process: integer state exact (page tables, ``seq_lens``, top-k
+   ids), floats within 2e-5.
 7. Report: one JSON line of every kernel's launches (the TPU kernels' on
    the serving path, phase 5; the serial walk's on the baselines path,
    phase 3c; probe and mutate also on the cluster path, phase 3f, as
    ``cluster_launches``, and on the cache and chaos path, phase 3g, as
-   ``cache_launches``), error, times and bound; the card's name and
-   power limit;
+   ``cache_launches``; every kernel's on the moe path, phase 6b (a), as
+   ``moe_launches``, and attention's times at that path's decode shape as
+   ``moe_shape``), error, times and bound; the card's name and power
+   limit;
    last ``{"ok": true, "device": {...}}``.
 
-The CPU twins that phases 3e ((c)'s small split), 3f (a) and 3g (a) hold
-the card against run in a spawned process of their own from the start;
-every process the script starts is ended before it exits.  Any failed
+The CPU twins that phases 3e ((c)'s small split), 3f (a), 3g (a) and 6b
+(d) hold the card against run in a spawned process of their own from the
+start; every process the script starts is ended before it exits.  Any failed
 check raises.  Without a CUDA device it exits non-zero and prints no
 result.
 """
@@ -194,12 +228,12 @@ STEP_REPS = 9                  # timings of the whole decode step
 # phases 3b-3d: the baselines and the end-to-end simulator
 BASE_SLOTS = 83_886_080        # the continuity cell's main slots
 WALK_B = 2_048                 # the serial walk's timed batch
-WALK_INSERT_CHECK_B = 2 ** 18  # the walk's full-size insert check (host copy)
+WALK_INSERT_CHECK_B = 2 ** 17  # the walk's full-size insert check (host copy)
 CHASE_STEPS = 65_536           # dependent loads timed for the walk's floor
 CHASE_COLD_STEPS = 8_192       # ... from a cold L2 (few lines touched twice)
 E2E_SCHEMES = ("continuity", "level", "pfarm")
 E2E_SMALL = dict(num_records=800, num_ops=1000, batch=250)
-E2E_LARGE = dict(num_records=1_048_576, num_ops=131_072, batch=4_096)
+E2E_LARGE = dict(num_records=1_048_576, num_ops=65_536, batch=4_096)
 
 
 def _check(cond, what: str) -> None:
@@ -221,13 +255,16 @@ CHILD_WAIT_S = 900             # the longest wait for a child process
 
 def _cpu_twin_runs(torch) -> dict:
     """{(phase, name): fn(device)}: the runs whose card payloads phases
-    3e, 3f (a) and 3g (a) hold against the same run on the CPU."""
+    3e, 3f (a), 3g (a) and 6b (d) hold against the same run on the CPU."""
     from repro_torch import api, convert
     from repro_torch.data import ycsb
     runs = {("3e", "small split"): lambda d: _small_split(
         torch, api, convert, ycsb, d)}
     runs.update({("3f", n): fn for n, fn in _cluster_runs().items()})
     runs.update({("3g", n): fn for n, fn in _cache_runs().items()})
+    from repro_torch.configs import ARCHS
+    runs.update({("6b", n): (lambda d, n=n: _family_twin(n, d))
+                 for n in ARCHS})
     return runs
 
 
@@ -254,12 +291,16 @@ def _child_result(queue, run) -> None:
         queue.put(("error", traceback.format_exc()))
 
 
+_CHILDREN = []                 # every process started, ended by main
+
+
 class _Child:
     """``target(queue)`` in a spawned process (no state shared with this
     one: a process of its own on the same card, or on the CPU only);
     ``result`` waits for what it puts, ``stop`` ends it in any case."""
 
     def __init__(self, target, what: str):
+        _CHILDREN.append(self)
         ctx = multiprocessing.get_context("spawn")
         self._what = what
         self._queue = ctx.Queue()
@@ -973,7 +1014,7 @@ def _walk_floor(torch, scheme, table, card) -> dict:
 def _walk_timing(torch, scheme, store, table, card) -> tuple:
     """The serial walk on the loaded full-size table, uncounted: every mode
     held against the plain version on a clone and a host copy (insert at
-    WALK_INSERT_CHECK_B, a quarter of the load's batch, for the smoke's
+    WALK_INSERT_CHECK_B, an eighth of the load's batch, for the smoke's
     time limit; update and delete at the main path's QUERY_B); then per
     mode one batch of WALK_B held against the plain version on the card's
     tensors (its time is the report's plain_ms), the
@@ -1772,9 +1813,10 @@ def _cluster_small(torch, card, twins) -> str:
     return cell
 
 
-def _cluster_full(torch, card) -> dict:
+def _cluster_full(torch, card) -> str:
     """(b): the full-size cluster — the deployment the reference's
-    ``run_cluster`` describes at the paper's record count."""
+    ``run_cluster`` describes at the paper's record count; its checks
+    made, returns its report line."""
     from repro_torch import api
     from repro_torch.cluster import sim
     kw = dict(num_records=CLUSTER_RECORDS, num_ops=CLUSTER_OPS,
@@ -1796,7 +1838,7 @@ def _cluster_full(torch, card) -> dict:
     # YCSB-A's one update batch per round: its pre-batch read (`_peek`)
     peeks = ", ".join(f"{1e3 * p:.1f} ms ({p / t:.4f} of its round)"
                       for p, t in zip(tm["peek"], tm["round"]))
-    print(f"phase 3f (b): cluster of 4 nodes (+ pmJ), R 2, continuity "
+    line = (f"phase 3f (b): cluster of 4 nodes (+ pmJ), R 2, continuity "
           f"{cfg.num_pairs} pairs / {cfg.stash_slots} stash slots per node "
           f"(node_slots {slots}), {CLUSTER_RECORDS} records, YCSB-A zipf "
           f"0.99, {CLUSTER_OPS} ops in batches of {CLUSTER_BATCH}: load "
@@ -1812,8 +1854,7 @@ def _cluster_full(torch, card) -> dict:
           f"maintenance {cell['maintenance']}; LinkModel "
           f"{cell['ops_per_s']:.0f} simulated ops/s, p50 "
           f"{cell['p50_us']:.4f} us, p99 {cell['p99_us']:.4f} us; whole "
-          f"cell {t_all:.1f} s; peak device memory {peak:.3f} GiB [{card}]",
-          flush=True)
+          f"cell {t_all:.1f} s; peak device memory {peak:.3f} GiB [{card}]")
     _check(cell["committed"] == CLUSTER_RECORDS,
            "every record of the load acknowledged")
     _check(cell["committed_lost"] == 0, "zero committed-op loss")
@@ -1822,21 +1863,58 @@ def _cluster_full(torch, card) -> dict:
     _check(cell["failover_detected"] and len(fail) == 1 and
            fail[0]["recovery_log_free"], "the kill was detected and "
            "promoted with log-free recovery")
-    return cell
+    return line
+
+
+def _cluster_full_main(queue) -> None:
+    """(b) in a process of its own on the card, started with phase 3d and
+    read after phase 3g (host-bound, as the phases beside it; none of them
+    times a kernel): (its report line, launches, in-place checks), the
+    launch counts set to 0 just before."""
+    def run():
+        sys.path.insert(0, str(ROOT / "src"))
+        import torch
+        from repro_torch.kernels import mutate, probe
+        probe.probe_segments.launches = 0
+        mutate.mutate_segments.launches = 0
+        t0 = time.perf_counter()
+        line, checks = _in_situ_segments(
+            torch, lambda: _cluster_full(torch, _smi()))
+        torch.cuda.empty_cache()       # hold no memory while it waits
+        return (line, time.perf_counter() - t0,
+                {"probe_segments": probe.probe_segments.launches,
+                 "mutate_segments": mutate.mutate_segments.launches}, checks)
+    _child_result(queue, run)
 
 
 def cluster_phase(torch, card, twins) -> tuple:
-    """Phase 3f, with every store-kernel call held in place against its
-    plain version; returns (its kernels' launch counts, set to 0 before;
-    the in-place checks)."""
+    """Phase 3f (a), with every store-kernel call held in place against
+    its plain version; returns (its kernels' launch counts, set to 0
+    before; the in-place checks)."""
     from repro_torch.kernels import mutate, probe, scan_walk
     probe.probe_segments.launches = 0
     mutate.mutate_segments.launches = 0
     scan_walk.scan_walk.launches = 0
-    _, checks = _in_situ_segments(torch, lambda: (
-        _cluster_small(torch, card, twins), _cluster_full(torch, card)))
-    launches = {"probe_segments": probe.probe_segments.launches,
-                "mutate_segments": mutate.mutate_segments.launches}
+    _, checks = _in_situ_segments(
+        torch, lambda: _cluster_small(torch, card, twins))
+    return {"probe_segments": probe.probe_segments.launches,
+            "mutate_segments": mutate.mutate_segments.launches}, checks
+
+
+def cluster_finish(card, full, launches, checks) -> None:
+    """Phase 3f's end: (b)'s report from its process (``full``), its
+    launches and in-place checks added to (a)'s (``launches``,
+    ``checks``, updated), and every launch of the path shown checked."""
+    line, seconds, full_launches, full_checks = full.result()
+    print(f"{line}; in its own process on the card from phase 3d on, "
+          f"{seconds:.1f} s", flush=True)
+    for name, c in full_checks.items():
+        launches[name] += full_launches[name]
+        mine = checks[name]
+        mine["calls"] += c["calls"]
+        mine["batches"] |= c["batches"]
+        mine["pairs"] |= c["pairs"]
+        mine["max_abs_err"] = max(mine["max_abs_err"], c["max_abs_err"])
     for name, n in launches.items():
         _check(n > 0, f"the cluster path launched {name}")
     for name, c in checks.items():
@@ -1847,7 +1925,6 @@ def cluster_phase(torch, card, twins) -> tuple:
               f"{min(c['batches'])}-{max(c['batches'])}, tables of "
               f"{sorted(c['pairs'])} pairs, max_abs_err {c['max_abs_err']} "
               f"[{card}]", flush=True)
-    return launches, checks
 
 
 # ---------------------------------------------------------------------------
@@ -2065,6 +2142,69 @@ def _attn_limit(want) -> float:
     return min(ATTN_TOL["bfloat16"], ATTN_REL * float(want.abs().max()))
 
 
+def attention_timing(torch, B, H, KVH, D, MAXP, NP, last, seed, card):
+    """The kernel at one decode shape (``B`` sequences of ``last`` tokens
+    on a pool of ``NP`` pages, bf16, scores of std 1.2): held within
+    ``_attn_limit`` of its plain version, a limit that an output one token
+    or one page short is shown to break; timed on the device beside its
+    bound, its plain version and ``scaled_dot_product_attention`` over the
+    same tokens laid out densely.  Returns (max_abs_err, ms, plain_ms,
+    bound_ms, library_ms)."""
+    from repro_torch.kernels import _cuda, paged_attn
+    from repro_torch.kernels.paged_attn_ref import paged_attention_ref
+    kern, plain = paged_attn.paged_attention, paged_attention_ref
+    PS = PAGE_SIZE
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    batches = [_attn_case(torch, seed + i, B, H, KVH, D, PS, MAXP, NP=NP,
+                          lens=[last] * B, dtype=torch.bfloat16,
+                          q_scale=4.0) for i in range(4)]
+    full = batches[0]
+    want = plain(*full).float()
+    limit = _attn_limit(want)
+    e_full = float((kern(*full).float() - want).abs().max())
+    _check(e_full <= limit, f"B={B} H={H} D={D} paged attention within "
+           f"{limit:.3g} of its plain version ({e_full})")
+    q, kp, vp, pt, lens = full
+    for cut, what in ((1, "its last token"), (PS, "its last page")):
+        moved = float((plain(q, kp, vp, pt, lens - cut).float() - want)
+                      .abs().max())
+        _check(moved > limit, f"the B={B} H={H} D={D} limit rejects an "
+               f"output that drops {what} ({moved} vs {limit:.3g})")
+    ms = _device_ms(torch, lambda a: kern(*a), batches, 100, KERNEL_SLEEP)
+    plain_ms = _device_ms(torch, lambda a: plain(*a), batches, 10,
+                          PLAIN_SLEEP)
+
+    def dense(a):        # the same live tokens as a (B, KVH, T, D) cache
+        q, kp, vp, pt, lens = a
+        T_ = int(lens[0])
+        idx = pt[:, :-(-T_ // PS)].long()
+        return [x[idx].permute(0, 2, 1, 3, 4).reshape(len(q), KVH, -1, D)
+                [:, :, :T_].contiguous() for x in (kp, vp)]
+    dense_b = [(a[0][:, :, None], *dense(a)) for a in batches]
+    lib_ms = _device_ms(torch, lambda a: sdpa(*a, enable_gqa=True),
+                        dense_b, 100, KERNEL_SLEEP)
+    lib_out = sdpa(*dense_b[0], enable_gqa=True)[:, :, 0]
+    _check(float((lib_out.float() - kern(*full).float()).abs().max())
+           < ATTN_TOL["bfloat16"], "the library call computes the same")
+    nbytes = (B * last * KVH * D * 2 * 2          # live K and V rows, bf16
+              + 2 * B * H * D * 2                 # q and out
+              + B * MAXP * 4 + B * 4)             # page table and lengths
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    splits = _cuda.paged_attn_splits(
+        B * KVH, MAXP, _cuda.sm_count(0), _cuda.resident_blocks(
+            0, _cuda.PAGED_ATTN_DTYPES[torch.bfloat16], D))
+    print(f"paged_attention: {ms * 1e3:.2f} us on the device per launch "
+          f"at B={B} H={H} KVH={KVH} D={D} PS={PS} len={last}, {splits} "
+          f"splits (bound {bound_ms * 1e3:.2f} us from "
+          f"{nbytes / 1e6:.2f} MB; plain version {plain_ms * 1e3:.2f} us; "
+          f"scaled_dot_product_attention on the dense cache, gather "
+          f"excluded, {lib_ms * 1e3:.2f} us); max_abs_err {e_full:.3g}, "
+          f"limit {limit:.3g} [{card}]", flush=True)
+    del batches, dense_b, full, q, kp, vp
+    torch.cuda.empty_cache()
+    return e_full, ms, plain_ms, bound_ms, lib_ms
+
+
 def attention_phase(torch, card) -> dict:
     """Phase 4; returns the kernel's report row (launches filled later)."""
     from repro_torch.kernels import paged_attn
@@ -2119,60 +2259,9 @@ def attention_phase(torch, card) -> dict:
     # dozen tokens carry each output and one token less moves it by far
     # more than the limit
     H, KVH, D, MAXP = 32, 4, 128, -(-(PROMPT_LEN + GEN) // PS)
-    NP = SERVE_B * MAXP
-    last = PROMPT_LEN + GEN - 1
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    timing = {}
-    for B in (SERVE_B, LAUNCHER_B):
-        batches = [_attn_case(torch, 20 + i, B, H, KVH, D, PS, MAXP, NP=NP,
-                              lens=[last] * B, dtype=torch.bfloat16,
-                              q_scale=4.0) for i in range(4)]
-        full = batches[0]
-        want = plain(*full).float()
-        limit = _attn_limit(want)
-        e_full = float((kern(*full).float() - want).abs().max())
-        _check(e_full <= limit, f"B={B} paged attention within {limit:.3g} "
-               f"of its plain version ({e_full})")
-        q, kp, vp, pt, lens = full
-        for cut, what in ((1, "its last token"), (PS, "its last page")):
-            moved = float((plain(q, kp, vp, pt, lens - cut).float() - want)
-                          .abs().max())
-            _check(moved > limit, f"the B={B} limit rejects an output that "
-                   f"drops {what} ({moved} vs {limit:.3g})")
-        ms = _device_ms(torch, lambda a: kern(*a), batches, 100, KERNEL_SLEEP)
-        plain_ms = _device_ms(torch, lambda a: plain(*a), batches, 10,
-                              PLAIN_SLEEP)
-
-        def dense(a):        # the same live tokens as a (B, KVH, T, D) cache
-            q, kp, vp, pt, lens = a
-            T_ = int(lens[0])
-            idx = pt[:, :-(-T_ // PS)].long()
-            return [x[idx].permute(0, 2, 1, 3, 4).reshape(len(q), KVH, -1, D)
-                    [:, :, :T_].contiguous() for x in (kp, vp)]
-        dense_b = [(a[0][:, :, None], *dense(a)) for a in batches]
-        lib_ms = _device_ms(torch, lambda a: sdpa(*a, enable_gqa=True),
-                            dense_b, 100, KERNEL_SLEEP)
-        lib_out = sdpa(*dense_b[0], enable_gqa=True)[:, :, 0]
-        _check(float((lib_out.float() - kern(*full).float()).abs().max())
-               < ATTN_TOL["bfloat16"], "the library call computes the same")
-        nbytes = (B * last * KVH * D * 2 * 2          # live K and V rows, bf16
-                  + 2 * B * H * D * 2                 # q and out
-                  + B * MAXP * 4 + B * 4)             # page table and lengths
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        from repro_torch.kernels import _cuda
-        splits = _cuda.paged_attn_splits(
-            B * KVH, MAXP, _cuda.sm_count(0), _cuda.resident_blocks(
-                0, _cuda.PAGED_ATTN_DTYPES[torch.bfloat16], D))
-        timing[B] = (e_full, ms, plain_ms, bound_ms, lib_ms)
-        print(f"paged_attention: {ms * 1e3:.2f} us on the device per launch "
-              f"at B={B} H={H} KVH={KVH} D={D} PS={PS} len={last}, {splits} "
-              f"splits (bound {bound_ms * 1e3:.2f} us from "
-              f"{nbytes / 1e6:.2f} MB; plain version {plain_ms * 1e3:.2f} us; "
-              f"scaled_dot_product_attention on the dense cache, gather "
-              f"excluded, {lib_ms * 1e3:.2f} us); max_abs_err {e_full:.3g}, "
-              f"limit {limit:.3g} [{card}]", flush=True)
-        del batches, dense_b, full, q, kp, vp
-        torch.cuda.empty_cache()
+    timing = {B: attention_timing(torch, B, H, KVH, D, MAXP, SERVE_B * MAXP,
+                                  PROMPT_LEN + GEN - 1, 20, card)
+              for B in (SERVE_B, LAUNCHER_B)}
     e_full, ms, plain_ms, bound_ms, lib_ms = timing[SERVE_B]
     print(f"phase 4: paged attention equals its plain version (max_abs_err "
           f"float32 {errs['float32']:.3g}, bfloat16 {errs['bfloat16']:.3g}; "
@@ -2191,6 +2280,33 @@ def attention_phase(torch, card) -> dict:
 
 def _count(cache) -> int:
     return sum(int(t.count) for t in cache.table)
+
+
+def _check_pages(geom, cache, npre, n_dec, lens, off, what) -> None:
+    """The page table of a one-shard cache after a prompt of ``npre``
+    pages per sequence and ``n_dec`` pages opened in decode holds exactly
+    the bump allocator's ids (host-computed: prompt pages sequence-major,
+    then each decode page for every sequence in slot order), and the
+    small fields agree."""
+    from repro_torch.serving import kvcache as KC
+    B, MAXP, PS = geom.batch, geom.max_pages, geom.page_size
+    b_ = np.arange(B)[:, None]
+    want = np.full((B, MAXP), -1, np.int32)
+    want[:, :npre] = b_ * npre + np.arange(npre)
+    for k in range(n_dec):
+        want[:, npre + k] = B * npre + k * B + b_[:, 0]
+    pages = KC.lookup_pages(geom, cache.table, cache.seq_ids)[0]
+    _check(_count(cache) == int((want >= 0).sum()),
+           f"{what}: the page table holds {int((want >= 0).sum())} mappings")
+    _check(np.array_equal(pages.cpu().numpy(), want),
+           f"{what}: lookup_pages returns the bump allocator's pages")
+    _check(int(cache.next_free[0]) == int((want >= 0).sum()),
+           f"{what}: next_free")
+    _check(bool((cache.seq_lens == lens).all()), f"{what}: seq_lens")
+    _check(bool((cache.cur_off == off).all()), f"{what}: cur_off")
+    last = want[np.arange(B), -(-lens // PS) - 1]
+    _check(np.array_equal(cache.cur_page[0].cpu().numpy(), last),
+           f"{what}: cur_page")
 
 
 def _diff_stats(torch, a, b) -> str:
@@ -2364,30 +2480,9 @@ def serving_phase(torch, card):
           f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB [{card}]",
           flush=True)
     npre = PROMPT_LEN // PS
-    b_ = np.arange(SERVE_B)[:, None]
-
-    def expect_pages(n_dec):      # the bump allocator's ids, host-computed
-        want = np.full((SERVE_B, MAXP), -1, np.int32)
-        want[:, :npre] = b_ * npre + np.arange(npre)
-        for k in range(n_dec):
-            want[:, npre + k] = SERVE_B * npre + k * SERVE_B + b_[:, 0]
-        return want
 
     def check_table(cache, n_dec, lens, off, what):
-        pages = KC.lookup_pages(geom, cache.table, cache.seq_ids)[0]
-        want = expect_pages(n_dec)
-        _check(_count(cache) == int((want >= 0).sum()),
-               f"{what}: the page table holds {int((want >= 0).sum())} "
-               f"mappings")
-        _check(np.array_equal(pages.cpu().numpy(), want),
-               f"{what}: lookup_pages returns the bump allocator's pages")
-        _check(int(cache.next_free[0]) == int((want >= 0).sum()),
-               f"{what}: next_free")
-        _check(bool((cache.seq_lens == lens).all()), f"{what}: seq_lens")
-        _check(bool((cache.cur_off == off).all()), f"{what}: cur_off")
-        last = want[np.arange(SERVE_B), -(-lens // PS) - 1]
-        _check(np.array_equal(cache.cur_page[0].cpu().numpy(), last),
-               f"{what}: cur_page")
+        _check_pages(geom, cache, npre, n_dec, lens, off, what)
 
     # the serving path's launches: counted from 0 over prefill, the decode
     # steps and the releases; every check in between runs _uncounted
@@ -2573,6 +2668,501 @@ def batcher_phase(torch, cfg, params, card) -> None:
           f"{releases} releases, page table empty [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 6b: the other families at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-3b-a800m"
+SSM_ARCH = "mamba2-370m"
+HYBRID_ARCH = "hymba-1.5b"
+MOE_B, MOE_PROMPT = 16, 512          # served: 16 prompts of 512 tokens
+FAMILY_GEN = 33                      # generated tokens: prefill's + 32 steps
+MOE_TWIN_B, MOE_TWIN_GEN = 4, 9      # the float32 twin, as phase 5's
+SSM_B, SSM_PROMPT = 8, 256           # 256 + 32 = 288 tokens
+HYBRID_B, HYBRID_PROMPT = 2, 1_072   # 1,072 + 32 = 1,104 > 1,088 tokens
+DECODE_TOL = (3e-3, 1e-3)            # decode vs forward (atol, rtol), as
+                                     # tests/test_serving.py:131
+TWIN_TOL = 2e-5                      # (d): card vs CPU, float32
+EAGER_STEPS = 8                      # eager bf16 steps timed beside the graph
+TWIN_B, TWIN_PROMPT, TWIN_RECURRENT, TWIN_STEPS = 4, 32, 72, 8
+
+
+def _excess(torch, got, want) -> tuple:
+    """(max |got - want|, max of |got - want| - rtol·|want|) under
+    ``DECODE_TOL``: the second at most atol passes torch.testing's rule."""
+    rtol = DECODE_TOL[1]
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), float((d - rtol * want.float().abs()).max())
+
+
+def _kernel_launches() -> dict:
+    from repro_torch.kernels import mutate, paged_attn, probe, scan_walk
+    return {"probe_segments": probe.probe_segments.launches,
+            "mutate_segments": mutate.mutate_segments.launches,
+            "paged_attention": paged_attn.paged_attention.launches,
+            "scan_walk": scan_walk.scan_walk.launches}
+
+
+def _reset_launches() -> None:
+    from repro_torch.kernels import mutate, paged_attn, probe, scan_walk
+    for k in (probe.probe_segments, mutate.mutate_segments,
+              paged_attn.paged_attention, scan_walk.scan_walk):
+        k.launches = 0
+
+
+class _StepLog:
+    """While active, every step of ``launch.serve.stepper`` (the launcher's
+    ``run_prefill`` / ``run_decode`` step) keeps its logits (``keep``)
+    and / or its host time between two device synchronizes (``timed``,
+    seconds; a graphed step's first call includes its capture)."""
+
+    def __init__(self, torch, keep=False, timed=False):
+        self.torch, self.keep, self.timed = torch, keep, timed
+        self.logits, self.times = [], []
+
+    def __enter__(self):
+        from repro_torch.launch import serve
+        self._serve, self._stepper = serve, serve.stepper
+
+        def stepper(*args, **kw):
+            inner = self._stepper(*args, **kw)
+
+            def step(tokens, cache):
+                if self.timed:
+                    self.torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                lg, cache = inner(tokens, cache)
+                if self.timed:
+                    self.torch.cuda.synchronize()
+                    self.times.append(time.perf_counter() - t0)
+                if self.keep:
+                    self.logits.append(lg)
+                return lg, cache
+            return step
+        serve.stepper = stepper
+        return self
+
+    def __exit__(self, *exc):
+        self._serve.stepper = self._stepper
+
+
+def _median_ms(times) -> float:
+    return sorted(times)[len(times) // 2] * 1e3
+
+
+def _params_gb(params) -> float:
+    leaves = list(params["blocks"].values()) + [
+        v for k, v in params.items() if k != "blocks"]
+    return sum(v.numel() * v.element_size() for v in leaves) / 1e9
+
+
+def moe_phase(torch, card) -> tuple:
+    """6b (a): granite-moe-3b-a800m served at full width; returns (the
+    path's launches, the attention kernel's timing at its decode shape)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import kvcache as KC
+
+    cfg = get_arch(MOE_ARCH)
+    m, PS = cfg.moe, PAGE_SIZE
+    params, t_init = _timed(torch, lambda: T.init_params(
+        cfg, torch.Generator("cuda").manual_seed(SEED)))
+    prompts = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (MOE_B, MOE_PROMPT)).astype(np.int32)).cuda()
+    geom = serve.make_geometry(cfg, MOE_B, MOE_PROMPT, FAMILY_GEN,
+                               page_size=PS, shards=1, device="cuda")
+    cache = KC.create_cache(geom)
+    print(f"phase 6b (a): {cfg.name} {cfg.n_layers} layers d {cfg.d_model} "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, {m.num_experts} "
+          f"experts top-{m.top_k} of d_ff {m.expert_dff}, vocab {cfg.vocab}, "
+          f"{cfg.param_count / 1e9:.2f} B parameters ({_params_gb(params):.2f}"
+          f" GB) made in {t_init:.2f} s; pool {geom.pool_pages} pages x "
+          f"{geom.max_pages} per sequence [{card}]", flush=True)
+
+    # the path's launches: prefill, the decode steps and the releases
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    npre = MOE_PROMPT // PS
+    (lg, cache), t_pre = _timed(torch, lambda: serve.run_prefill(
+        cfg, geom, params, prompts, cache))
+    _check(lg.shape == (MOE_B, cfg.vocab) and bool(lg.isfinite().all()),
+           "granite prefill logits finite, (B, vocab)")
+    _uncounted(lambda: _check_pages(geom, cache, npre, 0, MOE_PROMPT, 0,
+                                    "granite after prefill"))
+    (toks, lg, cache), t_dec = _timed(torch, lambda: serve.run_decode(
+        cfg, geom, params, lg, cache, FAMILY_GEN))
+    n_steps = FAMILY_GEN - 1
+    lens = MOE_PROMPT + n_steps
+    _uncounted(lambda: _check_pages(geom, cache, npre, -(-lens // PS) - npre,
+                                    lens, (lens - 1) % PS,
+                                    "granite after decode"))
+    _check(bool(lg.isfinite().all()), "granite decode logits finite")
+
+    # one more step (it opens a page: lens is a page multiple): each
+    # layer's kernel attention held against the plain version on that
+    # layer's inputs, the share of MoE assignments dropped at B 16; then
+    # the whole step timed from the committed state (no page opens)
+    def check_step():
+        tok = lg.argmax(-1).to(torch.int32)
+        c = KC.advance(geom, cache)
+        pt = KC.lookup_pages(geom, c.table, c.seq_ids)
+
+        def layers():
+            return T.paged_layers(cfg, params, tok, c, geom, pt)
+        layer_err = _in_situ_attention(layers)
+        kept, dispatch = [], L.moe_dispatch
+
+        def recording(*args, **kw):
+            out = dispatch(*args, **kw)
+            kept.append(out[4])
+            return out
+        L.moe_dispatch = recording
+        try:
+            layers()
+        finally:
+            L.moe_dispatch = dispatch
+        c = KC.commit_token(c)
+
+        def whole():
+            c1 = KC.advance(geom, c)
+            pt1 = KC.lookup_pages(geom, c1.table, c1.seq_ids)
+            x = T.paged_layers(cfg, params, tok, c1, geom, pt1)
+            return T.logits_fn(cfg, params, T.final_norm(cfg, params, x))
+        times = [_timed(torch, whole)[1] for _ in range(STEP_REPS)]
+        return c, layer_err, torch.cat(kept), times
+    cache, layer_err, kept, times = _uncounted(check_step)
+    worst = max(layer_err, key=lambda el: el[0] / el[1])
+    _check(len(layer_err) == cfg.n_layers
+           and all(e <= lim for e, lim in layer_err),
+           f"granite: every layer's kernel attention (D {cfg.hd}, G "
+           f"{cfg.n_heads // cfg.n_kv_heads}) equals the plain version on "
+           f"the same inputs (worst {worst[0]} against {worst[1]:.3g})")
+    _uncounted(lambda: _check_pages(geom, cache, npre,
+                                    -(-(lens + 1) // PS) - npre, lens + 1,
+                                    lens % PS, "granite after the check step"))
+    cap = int(np.ceil(MOE_B * m.top_k / m.num_experts * m.capacity_factor))
+    dropped = 1.0 - float(kept.float().mean())
+
+    def release_all(c):
+        for b in range(MOE_B):
+            c = E.release_sequence(geom, c, 0, b)
+        return c
+    cache, t_rel = _timed(torch, lambda: release_all(cache))
+    _check(_count(cache) == 0 and not bool(cache.seq_lens.any()),
+           "granite: the page table is empty after release")
+    launches = _kernel_launches()
+    step_ms = _median_ms(times)
+    print(f"phase 6b (a): prefill {MOE_B} x {MOE_PROMPT} tokens in "
+          f"{t_pre:.3f} s = {MOE_B * MOE_PROMPT / t_pre:.0f} tokens/s; decode "
+          f"{n_steps} steps in {t_dec:.3f} s ({t_dec / n_steps * 1e3:.2f} ms "
+          f"per step), the whole step {STEP_REPS} times: median "
+          f"{step_ms:.3f} ms (min {min(times) * 1e3:.3f}, max "
+          f"{max(times) * 1e3:.3f}); page tables exact; in one step every "
+          f"layer's kernel attention within its limit of the plain version "
+          f"(max_abs_err {max(e for e, _ in layer_err):.3g}, tightest limit "
+          f"{min(lim for _, lim in layer_err):.3g}); MoE assignments dropped "
+          f"at B {MOE_B} (capacity {cap} per expert): {dropped:.4f} of "
+          f"{kept.numel()}; release {t_rel:.3f} s; launches {launches}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB [{card}]",
+          flush=True)
+    for name in ("probe_segments", "mutate_segments", "paged_attention"):
+        _check(launches[name] > 0, f"the moe path launched {name}")
+    _check(launches["paged_attention"] == n_steps * cfg.n_layers,
+           "one attention launch per layer per decode step")
+
+    # the float32 twin: decode against its own forward, nothing dropped
+    def twin():
+        cfg32, p32 = _float32(torch, cfg, params)
+        cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k))
+        g32 = serve.make_geometry(cfg32, MOE_TWIN_B, MOE_PROMPT, MOE_TWIN_GEN,
+                                  page_size=PS, shards=1, device="cuda")
+        lg32, c32 = serve.run_prefill(cfg32, g32, p32, prompts[:MOE_TWIN_B],
+                                      KC.create_cache(g32))
+        t32, lg32, c32 = serve.run_decode(cfg32, g32, p32, lg32, c32,
+                                          MOE_TWIN_GEN)
+        x, _ = T.forward(cfg32, p32, torch.cat(
+            [prompts[:MOE_TWIN_B], t32[:, :MOE_TWIN_GEN - 1]], 1))
+        return _excess(torch, lg32, T.logits_fn(cfg32, p32, x[:, -1]))
+    err32, excess = _uncounted(twin)
+    torch.cuda.empty_cache()
+    print(f"phase 6b (a): float32 twin ({MOE_TWIN_B} sequences, "
+          f"{MOE_PROMPT}-token prompts, {MOE_TWIN_GEN - 1} steps, capacity "
+          f"factor {m.num_experts / m.top_k}): decode vs its forward "
+          f"max_abs_err {err32:.3g} (atol {DECODE_TOL[0]}, rtol "
+          f"{DECODE_TOL[1]}: excess {excess:.3g})", flush=True)
+    _check(excess <= DECODE_TOL[0], "granite float32 paged decode equals "
+           "its forward")
+    del params, cache
+    torch.cuda.empty_cache()
+    timing = _uncounted(lambda: attention_timing(
+        torch, MOE_B, cfg.n_heads, cfg.n_kv_heads, cfg.hd, geom.max_pages,
+        geom.pool_pages, lens, 40, card))
+    return launches, timing
+
+
+def _recurrent_check(torch, cfg, params, prompts, what):
+    """Recurrent prefill of ``prompts`` and ``FAMILY_GEN - 1`` greedy decode
+    steps through the launcher on its float32 state cache, every step's
+    logits held against the forward's at that position (``DECODE_TOL``);
+    returns (max_abs_err of all steps, of the last, its excess, the
+    forward's logits, the tokens fed, seconds of the run)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    B, P = prompts.shape
+    with _StepLog(torch, keep=True) as log:
+        def run():
+            lg, c = serve.run_prefill(cfg, None, params, prompts,
+                                      serve.make_state_cache(
+                                          cfg, B, P, FAMILY_GEN,
+                                          device="cuda"))
+            return serve.run_decode(cfg, None, params, lg, c, FAMILY_GEN)
+        (toks, _, _), t_run = _timed(torch, run)
+    hist = torch.cat([prompts, toks[:, :FAMILY_GEN - 1]], 1)
+    x, _ = T.forward(cfg, params, hist)
+    want = T.logits_fn(cfg, params, x)
+    got = torch.stack(log.logits, 1)
+    err_all, excess_all = _excess(torch, got, want)
+    err_last, excess_last = _excess(torch, got[:, -1], want[:, -1])
+    print(f"{what}: {B} sequences x {hist.shape[1]} tokens recurrently in "
+          f"{t_run:.3f} s ({t_run / hist.shape[1] * 1e3:.2f} ms per step); "
+          f"every step's logits vs the forward's max_abs_err {err_all:.3g} "
+          f"(excess {excess_all:.3g}), the last step's {err_last:.3g} "
+          f"(excess {excess_last:.3g}); atol {DECODE_TOL[0]}, rtol "
+          f"{DECODE_TOL[1]}; logits std {float(want.std()):.3f}", flush=True)
+    _check(excess_all <= DECODE_TOL[0], f"{what}: recurrent decode equals "
+           f"the forward at every step")
+    return want, hist
+
+
+def _bf16_steps(torch, cfg, params, B, max_seq, steps) -> str:
+    """``steps`` greedy bf16 decode steps (``launch.serve.run_decode``, the
+    graphed step) of ``B`` sequences from a fresh float32 state cache of
+    room ``max_seq``, each timed, the logits finite; then ``EAGER_STEPS``
+    eager ``engine.serve_step`` calls on another fresh cache, timed.
+    Returns the report."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import engine as E
+    cache = serve.make_state_cache(cfg, B, max_seq, 0, device="cuda")
+    first = torch.zeros((B, cfg.vocab), device="cuda")    # token 0 first
+    with _StepLog(torch, timed=True) as log:
+        toks, lg, _ = serve.run_decode(cfg, None, params, first, cache,
+                                       steps + 1)
+    _check(bool(lg.isfinite().all()), f"{cfg.name} bf16 logits finite")
+    capture, times = log.times[0], log.times[1:]
+    cache = serve.make_state_cache(cfg, B, max_seq, 0, device="cuda")
+    eager = []
+    for t in range(EAGER_STEPS):
+        (_, cache), dt = _timed(torch, lambda: E.serve_step(
+            cfg, None, params, toks[:, t], cache))
+        eager.append(dt)
+    return (f"bf16 decode, {steps} graphed steps of {B} sequences: the "
+            f"first (its capture) {capture * 1e3:.3f} ms, then median "
+            f"{_median_ms(times):.3f} ms per step (min {min(times) * 1e3:.3f}"
+            f", max {max(times) * 1e3:.3f}); {EAGER_STEPS} eager steps: "
+            f"median {_median_ms(eager):.3f} ms (min {min(eager) * 1e3:.3f}, "
+            f"max {max(eager) * 1e3:.3f})")
+
+
+def ssm_phase(torch, card) -> None:
+    """6b (b): mamba2-370m at full width, launching no kernel."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch(SSM_ARCH)
+    params, t_init = _timed(torch, lambda: T.init_params(
+        cfg, torch.Generator("cuda").manual_seed(SEED)))
+    prompts = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
+        0, cfg.vocab, (SSM_B, SSM_PROMPT)).astype(np.int32)).cuda()
+    s = cfg.ssm
+    print(f"phase 6b (b): {cfg.name} {cfg.n_layers} layers d {cfg.d_model}, "
+          f"d_state {s.d_state}, {s.expand * cfg.d_model // s.head_dim} "
+          f"heads of {s.head_dim}, chunk {s.chunk}, no attention, vocab "
+          f"{cfg.vocab}; {_params_gb(params):.2f} GB made in {t_init:.2f} s "
+          f"[{card}]", flush=True)
+    _reset_launches()
+    cfg32, p32 = _float32(torch, cfg, params)
+    _recurrent_check(torch, cfg32, p32, prompts, "phase 6b (b) float32")
+    del p32
+    torch.cuda.empty_cache()
+    report = _bf16_steps(torch, cfg, params, SSM_B,
+                         SSM_PROMPT + FAMILY_GEN, FAMILY_GEN - 1)
+    launches = _kernel_launches()
+    print(f"phase 6b (b): {report}; kernel launches {launches} "
+          f"[{card}]", flush=True)
+    _check(not any(launches.values()), "the ssm path launches no kernel")
+
+
+def hybrid_phase(torch, card) -> None:
+    """6b (c): hymba-1.5b at full width past its window, launching no
+    kernel; the ring's negative control."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import kvcache as KC
+    cfg = get_arch(HYBRID_ARCH)
+    params, t_init = _timed(torch, lambda: T.init_params(
+        cfg, torch.Generator("cuda").manual_seed(SEED)))
+    prompts = torch.from_numpy(np.random.RandomState(SEED + 2).randint(
+        0, cfg.vocab, (HYBRID_B, HYBRID_PROMPT)).astype(np.int32)).cuda()
+    glob = [i for i, w in enumerate(T.layer_windows(cfg)) if not w]
+    print(f"phase 6b (c): {cfg.name} {cfg.n_layers} layers d {cfg.d_model} "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, window "
+          f"{cfg.window}, global layers {glob}, d_state {cfg.ssm.d_state}, "
+          f"vocab {cfg.vocab}; {_params_gb(params):.2f} GB made in "
+          f"{t_init:.2f} s [{card}]", flush=True)
+    _reset_launches()
+    cfg32, p32 = _float32(torch, cfg, params)
+    want, hist = _recurrent_check(torch, cfg32, p32, prompts,
+                                  "phase 6b (c) float32, every ring wrapped")
+
+    # negative control: the same tokens with each ring written one slot
+    # off; it must leave the tolerance (checked step by step, stopped at
+    # the first step that does)
+    def shifted():
+        slot = T.ring_slot
+        T.ring_slot = lambda seq_lens, window: (seq_lens + 1) % window
+        try:
+            cache = KC.create_state_cache(cfg32, HYBRID_B, hist.shape[1],
+                                          dtype=torch.float32, device="cuda")
+            for t in range(hist.shape[1]):
+                lg, cache = E.serve_step(cfg32, None, p32, hist[:, t], cache)
+                err, excess = _excess(torch, lg, want[:, t])
+                if excess > DECODE_TOL[0]:
+                    return t, err
+            return None, err
+        finally:
+            T.ring_slot = slot
+    step, err = shifted()
+    print(f"phase 6b (c): negative control, each ring slot shifted by one: "
+          f"left the tolerance at position {step} (max_abs_err {err:.3g})",
+          flush=True)
+    _check(step is not None, "a ring written one slot off breaks the "
+           "decode-vs-forward tolerance")
+    del p32, want
+    torch.cuda.empty_cache()
+    report = _bf16_steps(torch, cfg, params, HYBRID_B, hist.shape[1],
+                         FAMILY_GEN - 1)
+    launches = _kernel_launches()
+    print(f"phase 6b (c): {report}; kernel launches {launches} "
+          f"[{card}]", flush=True)
+    _check(not any(launches.values()), "the hybrid path launches no kernel")
+
+
+def _family_twin(name, device) -> dict:
+    """6b (d): one prefill (paged families; from (B, S, E) embeddings for
+    the embed frontends) or recurrent pass (ssm, hybrid: past the twin's
+    64-token window) of ``name``'s smoke twin plus ``TWIN_STEPS`` decode
+    steps of seeded tokens on ``device``; a flat dict of numpy arrays:
+    every step's logits, the cache's fields and the MoE's top-k ids."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import kvcache as KC
+    cfg = smoke_config(name)
+    p = T.init_params(cfg, torch.Generator().manual_seed(SEED))
+    p = {k: (v.to(device) if k != "blocks" else
+             {n: w.to(device) for n, w in v.items()}) for k, v in p.items()}
+    rng = np.random.RandomState(SEED + 9)
+    recurrent = cfg.family in ("ssm", "hybrid")
+    S_ = TWIN_RECURRENT if recurrent else TWIN_PROMPT
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab, (TWIN_B, S_)).astype(
+        np.int32)).to(device)
+    fed = torch.from_numpy(rng.randint(0, cfg.vocab, (TWIN_B, TWIN_STEPS))
+                           .astype(np.int32)).to(device)
+    topk, route = [], L.moe_route
+
+    def recording(*args, **kw):
+        out = route(*args, **kw)
+        topk.append(out[1].cpu().numpy())
+        return out
+    L.moe_route = recording
+    try:
+        if recurrent:
+            geom = None
+            cache = serve.make_state_cache(cfg, TWIN_B, S_, TWIN_STEPS,
+                                           device=device)
+            lg, cache = serve.run_prefill(cfg, None, p, prompt, cache)
+        else:
+            geom = serve.make_geometry(cfg, TWIN_B, S_, TWIN_STEPS,
+                                       page_size=PAGE_SIZE, shards=2,
+                                       device=device)
+            if cfg.frontend == "embed":
+                prompt = torch.from_numpy(rng.randn(
+                    TWIN_B, S_, cfg.d_model).astype(np.float32)).to(device)
+                lg, cache = E.prefill(cfg, geom, p, prompt,
+                                      KC.create_cache(geom))
+            else:
+                lg, cache = serve.run_prefill(cfg, geom, p, prompt,
+                                              KC.create_cache(geom))
+        out = {"logits_0": lg.cpu().numpy()}
+        for i in range(TWIN_STEPS):
+            lg, cache = E.serve_step(cfg, geom, p, fed[:, i], cache)
+            out[f"logits_{i + 1}"] = lg.cpu().numpy()
+    finally:
+        L.moe_route = route
+    if recurrent:
+        state = convert.state_cache_to_numpy(cache)
+    else:
+        state = convert.cache_to_numpy(cache)
+        state.update({f"table.{k}": v for k, v in state.pop("table").items()})
+    out.update(state)
+    out.update({f"topk_{i}": a for i, a in enumerate(topk)})
+    return out
+
+
+def _same_twin(card_out, cpu_out, what) -> float:
+    """Integer arrays equal, float ones within ``TWIN_TOL``; returns the
+    largest float difference."""
+    _check(sorted(card_out) == sorted(cpu_out), f"{what}: the same fields")
+    worst = 0.0
+    for k, a in cpu_out.items():
+        b = card_out[k]
+        if a.dtype.kind in "iub":
+            _check(a.dtype == b.dtype and np.array_equal(a, b),
+                   f"{what}: {k} equal")
+        else:
+            e = float(np.abs(b.astype(np.float64) - a).max()) if a.size else 0
+            _check(e <= TWIN_TOL, f"{what}: {k} within {TWIN_TOL} ({e})")
+            worst = max(worst, e)
+    return worst
+
+
+def families_phase(torch, card, twins) -> tuple:
+    """Phase 6b; returns the moe path's launches and the attention
+    kernel's timing at granite's decode shape."""
+    from repro_torch.configs import ARCHS
+    t0 = time.perf_counter()
+    launches, timing = moe_phase(torch, card)
+    t1 = time.perf_counter()
+    ssm_phase(torch, card)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    hybrid_phase(torch, card)
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    worst, t_card = {}, 0.0
+    for name in ARCHS:
+        out, t = _timed(torch, lambda: _uncounted(
+            lambda: _family_twin(name, "cuda")))
+        cpu, _ = twins.get("6b", name)
+        worst[name] = _same_twin(out, cpu, f"the {name} twin, card vs CPU")
+        t_card += t
+    print(f"phase 6b (d): the ten twins on the card equal the CPU's runs "
+          f"(integer state exact: page tables, seq_lens, top-k ids; floats "
+          f"within {TWIN_TOL}: worst {max(worst.values()):.3g}) in "
+          f"{t_card:.1f} s; (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{t3 - t2:.1f} s [{card}]", flush=True)
+    return launches, timing
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2586,7 +3176,8 @@ def main() -> int:
     try:
         return _smoke(torch, twins)
     finally:
-        twins.stop()
+        for child in _CHILDREN:
+            child.stop()
 
 
 def _smoke(torch, twins) -> int:
@@ -2646,6 +3237,9 @@ def _smoke(torch, twins) -> int:
           f"launches {walk_launches} [{card}]", flush=True)
     torch.cuda.empty_cache()
 
+    # -- phase 3f (b): the full-size cluster, in its own process from here
+    cluster_full = _Child(_cluster_full_main, "phase 3f (b) on the card")
+
     # -- phase 3d: the end-to-end simulator, its launches counted --------
     t0 = time.perf_counter()
     e2e_phase(torch, card)
@@ -2661,12 +3255,12 @@ def _smoke(torch, twins) -> int:
     print(f"maintenance path: {time.perf_counter() - t0:.1f} s, kernel "
           f"launches {m_launches} [{card}]", flush=True)
 
-    # -- phase 3f: the cluster, launches counted -------------------------
+    # -- phase 3f (a): the cluster at the reference's sizes, counted -----
     t0 = time.perf_counter()
     c_launches, c_checks = cluster_phase(torch, card, twins)
     torch.cuda.empty_cache()
-    print(f"cluster path: {time.perf_counter() - t0:.1f} s, kernel "
-          f"launches {c_launches} [{card}]", flush=True)
+    print(f"phase 3f (a): {time.perf_counter() - t0:.1f} s, kernel launches "
+          f"{c_launches} [{card}]", flush=True)
 
     # -- phase 3g: the client cache and the chaos matrix, launches counted -
     t0 = time.perf_counter()
@@ -2674,6 +3268,13 @@ def _smoke(torch, twins) -> int:
     torch.cuda.empty_cache()
     print(f"cache and chaos path: {time.perf_counter() - t0:.1f} s, kernel "
           f"launches {g_launches} [{card}]", flush=True)
+
+    # -- phase 3f's end: (b) read from its process -----------------------
+    t0 = time.perf_counter()
+    cluster_finish(card, cluster_full, c_launches, c_checks)
+    cluster_full.stop()
+    print(f"cluster path: kernel launches {c_launches}; waited "
+          f"{time.perf_counter() - t0:.1f} s for (b) [{card}]", flush=True)
     walk_err = max([walk_err] + [t[2] for t in walk_timing.values()])
     ins, floor = walk_timing["level"][0]["insert"], walk_timing["level"][1]
     # latency_floor_ms: WALK_B dependent trips at the warm token chase's
@@ -2698,6 +3299,13 @@ def _smoke(torch, twins) -> int:
 
     # -- phase 6: the continuous batcher ---------------------------------
     batcher_phase(torch, cfg, params, card)
+    del params
+    torch.cuda.empty_cache()
+
+    # -- phase 6b: the other families at full width, launches counted ----
+    t0 = time.perf_counter()
+    moe_launches, moe_attn = families_phase(torch, card, twins)
+    print(f"families path: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- phase 7: report -------------------------------------------------
     rows.append(walk_row)
@@ -2711,6 +3319,14 @@ def _smoke(torch, twins) -> int:
                                    g_checks[r["name"]]["max_abs_err"])
             r["cluster_launches"] = c_launches[r["name"]]
             r["cache_launches"] = g_launches[r["name"]]
+        r["moe_launches"] = moe_launches[r["name"]]
+        if r["name"] == "paged_attention":     # granite's decode shape
+            e, ms, plain_ms, bound_ms, lib_ms = moe_attn
+            r["moe_shape"] = {"B": MOE_B, "H": 24, "KVH": 8, "D": 64,
+                              "len": MOE_PROMPT + FAMILY_GEN - 1,
+                              "max_abs_err": e, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "library_ms": lib_ms}
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

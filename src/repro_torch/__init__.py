@@ -2,8 +2,10 @@
 
 The request path — hashing, the continuity table, lookup and the fused
 insert/update/delete engine, verb plans and the store API — and
-hash-paged serving of the dense family (models, paged KV cache, engine,
-continuous batcher, ``launch.serve``), with the segment-probe,
+serving of every model family of the reference (dense, moe, audio and
+vlm on the hash-paged KV cache; ssm and hybrid on recurrent state and
+ring buffers: models, caches, engine, continuous batcher,
+``launch.serve``), with the segment-probe,
 mutation-plan and paged-attention kernels written in CUDA for Hopper
 (``kernels/csrc``).  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card, asking for CUDA raises.

@@ -13,7 +13,9 @@ that compare field by field with the reference's.
 ``params_from_numpy`` maps the reference's parameter tree (as numpy, same
 keys, per-layer tensors stacked on L) onto the port's storage dtypes;
 ``cache_from_numpy``/``cache_to_numpy`` carry a ``PagedCache``, its
-per-shard page tables stacked on a leading DS dim as in the reference.
+per-shard page tables stacked on a leading DS dim as in the reference;
+``state_cache_from_numpy``/``state_cache_to_numpy`` the ssm and hybrid
+families' state cache (float leaves keep their dtype, ``seq_lens`` int32).
 """
 
 from __future__ import annotations
@@ -32,8 +34,6 @@ from repro_torch.models import transformer as T
 from repro_torch.serving.kvcache import PagedCache
 
 INT32_FIELDS = ("ext_map", "ext_count", "count")
-F32_LEAVES = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias",
-              "final_scale", "final_bias", "lm_head")
 
 
 def _from_numpy(cls, fields: Mapping[str, np.ndarray], device,
@@ -119,19 +119,12 @@ def dense_table_to_numpy(table: DenseTable) -> dict:
 def params_from_numpy(params_np: Mapping, cfg, device="cuda") -> dict:
     """The reference's parameter tree (numpy leaves) as the port's: the
     matrices the reference casts to ``cfg.dtype`` at every use are stored
-    in it, norm scales and the LM head in float32."""
+    in it; norm scales, the router, the SSM's vectors and the LM head in
+    float32 (``transformer.leaf_dtype``).  An unknown leaf raises."""
     dev = resolve_device(device)
 
     def leaf(name, a):
-        if name in F32_LEAVES:
-            dt = torch.float32
-        elif name == "embed":
-            dt = T.embed_dtype(cfg)
-        elif name in T.CAST_LEAVES:
-            dt = T._dtype(cfg)
-        else:
-            raise NotImplementedError(
-                f"parameter {name!r} belongs to a family not ported yet")
+        dt = T.leaf_dtype(cfg, name)
         return torch.from_numpy(np.array(a, np.float32)).to(dev, dt)
 
     out = {k: leaf(k, v) for k, v in params_np.items() if k != "blocks"}
@@ -175,4 +168,31 @@ def cache_to_numpy(cache: PagedCache) -> dict:
         else:
             a = t.numpy().copy()
             out[name] = a.view(np.uint32) if name == "seq_ids" else a
+    return out
+
+
+def state_cache_from_numpy(fields: Mapping, device="cuda") -> dict:
+    """A state cache (``kvcache.create_state_cache``'s dict) on ``device``
+    from numpy arrays, each float leaf in its array's dtype (the
+    reference's bfloat16 arrays included), ``seq_lens`` int32."""
+    dev = resolve_device(device)
+    out = {}
+    for name, a in fields.items():
+        a = np.asarray(a)
+        if name == "seq_lens":
+            out[name] = torch.from_numpy(a.astype(np.int32)).to(dev)
+        else:
+            out[name] = torch.from_numpy(np.array(a, np.float32)).to(
+                dev, getattr(torch, str(a.dtype)))
+    return out
+
+
+def state_cache_to_numpy(cache: Mapping) -> dict:
+    """A state cache as host numpy arrays: float leaves as float32 values
+    (bfloat16 widened exactly), ``seq_lens`` int32."""
+    out = {}
+    for name, t in cache.items():
+        t = t.detach().cpu()
+        out[name] = (t.numpy().copy() if name == "seq_lens"
+                     else t.to(torch.float32).numpy().copy())
     return out

@@ -1,9 +1,12 @@
 """Model configuration (plain data), the port's copy of ``repro.models.config``.
 
-One ``ModelConfig`` describes the transformer backbone.  ``MoEConfig`` and
-``SSMConfig`` are carried as data so every config of the reference reads
-here; the port runs the dense family so far.  ``input_specs`` is not
-ported: it builds JAX shape stand-ins for the reference's dry-run.
+One ``ModelConfig`` describes the transformer backbone of every family
+(dense, moe, audio, vlm, hybrid, ssm); ``MoEConfig`` and ``SSMConfig``
+carry the expert and state-space parts.  Modality frontends (musicgen's
+EnCodec, llava's vision tower) are stubs, as in the reference: those
+configs (``frontend="embed"``) take precomputed (B, S, E) embeddings.
+``input_specs`` is not ported: it builds JAX shape stand-ins for the
+reference's dry-run.
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ class MoEConfig:
     top_k: int
     expert_dff: int
     capacity_factor: float = 1.25
-    impl: str = "sorted"      # sorted | dense
+    # "sorted": capacity-bucket dispatch (tokens past an expert's capacity
+    # are dropped); "dense": every expert on every token, weighted by the
+    # gates (no drops, E/top_k x the active FLOPs)
+    impl: str = "sorted"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +114,16 @@ class ModelConfig:
             per_layer += 2 * nh
         per_layer += 2 * E
         return n + L * per_layer
+
+    @property
+    def active_param_count(self) -> int:
+        """MoE: params touched per token (6·N_active·D convention)."""
+        if self.moe is None:
+            return self.param_count
+        m = self.moe
+        L, E = self.n_layers, self.d_model
+        inactive = L * (m.num_experts - m.top_k) * 3 * E * m.expert_dff
+        return self.param_count - inactive
 
 
 @dataclasses.dataclass(frozen=True)

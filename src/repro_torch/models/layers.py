@@ -1,15 +1,20 @@
-"""Transformer building blocks: norms, RoPE, blockwise attention, MLP.
+"""Transformer building blocks: norms, RoPE, blockwise attention, MLP, MoE.
 
-Port of ``repro.models.layers`` (dense family).  Functions are pure and
+Port of ``repro.models.layers``.  Functions are pure and
 parameters plain dicts of tensors; every function computes in the same
 dtypes as the reference (norms, RoPE and attention scores in float32, the
 residual stream in the model's dtype).  Attention is blockwise over query
 chunks: each chunk sees the whole key range under the causal mask, which
-bounds the score tensor at (chunk x S) per layer.  Not ported yet: the
-sliding-window band, the ``causal_skip`` inner loop and ``moe``.
+bounds the score tensor at (chunk x S) per layer; sliding-window
+attention uses a banded slice of width (window + chunk), so its FLOPs are
+O(S · window).  ``moe`` is the top-k expert layer (capacity-bucket or
+dense dispatch); its expert products are plain matmuls, as the
+reference's are plain einsums.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -46,12 +51,20 @@ def apply_norm(cfg, p, prefix, x):
 # rotary position embedding (GPT-NeoX half-rotation convention)
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _rope_freq(half: int, theta: float, device: torch.device):
+    """The rotation frequencies (half,) float32 on ``device``, computed in
+    float64 on the host once (a host-to-device copy per call would stall
+    every decode layer on the card)."""
+    return torch.from_numpy(1.0 / (theta ** (np.arange(0, half) / half))).to(
+        device=device, dtype=F32)
+
+
 def rope(x, positions, theta=10000.0):
     """x: (..., S, H, D) or (..., H, D) with positions (..., S) / (...,)."""
     D = x.shape[-1]
     half = D // 2
-    freq = torch.from_numpy(1.0 / (theta ** (np.arange(0, half) / half))).to(
-        device=x.device, dtype=F32)
+    freq = _rope_freq(half, theta, x.device)
     ang = positions[..., None].to(F32) * freq              # (..., S, half)
     cos = torch.cos(ang)[..., None, :]                     # (..., S, 1, half)
     sin = torch.sin(ang)[..., None, :]
@@ -64,17 +77,28 @@ def rope(x, positions, theta=10000.0):
 # blockwise causal attention (GQA)
 # ---------------------------------------------------------------------------
 
+def _attn_scores(q, k, scale):
+    """q (B,C,KVH,G,D) x k (B,T,KVH,D) -> (B,KVH,G,C,T) f32."""
+    return torch.einsum("bckgd,btkd->bkgct", q.to(F32), k.to(F32)) * scale
+
+
+def _attn_out(p, v):
+    """p (B,KVH,G,C,T) x v (B,T,KVH,D) -> (B,C,KVH,G,D)."""
+    return torch.einsum("bkgct,btkd->bckgd", p, v.to(F32))
+
+
 def blockwise_attention(q, k, v, *, chunk: int, window: int = 0,
                         q_offset=0, causal_skip: bool = False):
-    """Causal attention, looped over q chunks (the reference's masked mode).
+    """Causal (optionally sliding-window) attention, looped over q chunks.
 
     q: (B, S, H, D); k, v: (B, T, KVH, D); returns (B, S, H, D).
     ``q_offset``: absolute position of q[0] (for prefill continuation).
+    ``window > 0`` restricts attention to the last ``window`` positions
+    over a banded slice of ``window + chunk`` keys (FLOPs O(S·window)).
+    ``causal_skip``: an inner loop over KV chunks with an online softmax,
+    skipping the chunk pairs above the diagonal (the reference's
+    ``lax.cond``); the masked mode sees every key under the causal mask.
     """
-    if window > 0 or causal_skip:
-        raise NotImplementedError(
-            "sliding-window and causal_skip attention are not ported yet "
-            "(ROADMAP.md, Queue 1 #11)")
     B, S_in, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -84,17 +108,63 @@ def blockwise_attention(q, k, v, *, chunk: int, window: int = 0,
         q = F.pad(q, (0, 0, 0, 0, 0, C - S_in % C))
     nC = q.shape[1] // C
     qg = q.reshape(B, nC, C, KVH, G, D)
-    kf, vf = k.to(F32), v.to(F32)
-    kpos = torch.arange(T, device=q.device)
-    outs = []
-    for c in range(nC):
-        s = torch.einsum("bckgd,btkd->bkgct", qg[:, c].to(F32), kf) * scale
-        qpos = c * C + q_offset + torch.arange(C, device=q.device)
-        live = kpos[None, :] <= qpos[:, None]
-        s = s.masked_fill(~live, float("-inf"))
-        outs.append(torch.einsum("bkgct,btkd->bckgd", torch.softmax(s, -1),
-                                 vf))
-    out = torch.stack(outs, 1)                          # (B,nC,C,KVH,G,D)
+    dev = q.device
+    ar = torch.arange(C, device=dev)
+
+    if window > 0:
+        band = min(window + C, T)      # static banded width
+
+        def step(c):
+            # the reference's clamped start: a start that differs at the
+            # sequence's edges changes which keys are live
+            start = max(c * C + q_offset - window, 0)
+            start = min(start, max(T - (window + C), 0))
+            kb, vb = k[:, start:start + band], v[:, start:start + band]
+            s = _attn_scores(qg[:, c], kb, scale)        # (B,KVH,G,C,band)
+            qpos = c * C + q_offset + ar
+            kpos = start + torch.arange(band, device=dev)
+            live = (kpos[None, :] <= qpos[:, None]) & \
+                (kpos[None, :] > qpos[:, None] - window)
+            s = s.masked_fill(~live, float("-inf"))
+            return _attn_out(torch.softmax(s, -1), vb)
+    elif causal_skip:
+        if T % C:                      # pad kv to a chunk multiple (masked)
+            k = F.pad(k, (0, 0, 0, 0, 0, C - T % C))
+            v = F.pad(v, (0, 0, 0, 0, 0, C - T % C))
+            T = k.shape[1]
+        nK = T // C
+
+        def step(c):
+            qc = qg[:, c]
+            qpos = c * C + q_offset + ar
+            m_r = torch.full((B, KVH, G, C), -1e30, dtype=F32, device=dev)
+            l_r = torch.zeros((B, KVH, G, C), dtype=F32, device=dev)
+            acc = torch.zeros((B, KVH, G, C, D), dtype=F32, device=dev)
+            for j in range(min(c + 1, nK)):     # chunk pairs j <= c only
+                kj, vj = k[:, j * C:(j + 1) * C], v[:, j * C:(j + 1) * C]
+                s = _attn_scores(qc, kj, scale)          # (B,KVH,G,C,C)
+                kpos = j * C + ar
+                s = torch.where(kpos[None, :] <= qpos[:, None], s, -1e30)
+                m_new = torch.maximum(m_r, s.amax(-1))
+                p = torch.exp(s - m_new[..., None])
+                alpha = torch.exp(m_r - m_new)
+                l_r = l_r * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bkgct,btkd->bkgcd", p, vj.to(F32))
+                m_r = m_new
+            out = acc / torch.clamp(l_r, min=1e-30)[..., None]
+            return out.movedim(3, 1)                     # (B,C,KVH,G,D)
+    else:
+        kpos = torch.arange(T, device=dev)
+
+        def step(c):
+            s = _attn_scores(qg[:, c], k, scale)         # (B,KVH,G,C,T)
+            qpos = c * C + q_offset + ar
+            s = s.masked_fill(~(kpos[None, :] <= qpos[:, None]),
+                              float("-inf"))
+            return _attn_out(torch.softmax(s, -1), v)
+
+    out = torch.stack([step(c) for c in range(nC)], 1)  # (B,nC,C,KVH,G,D)
     return out.reshape(B, nC * C, H, D)[:, :S_in].to(q.dtype)
 
 
@@ -154,3 +224,103 @@ def mlp(cfg, p, x):
         h = x @ p["w_up"].to(dt)
         h = F.gelu(h.to(F32), approximate="tanh").to(dt)
     return h @ p["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (top-k, sort-based dispatch, capacity-bounded)
+# ---------------------------------------------------------------------------
+
+def _dense_moe_group(num_experts: int) -> int:
+    """Expert-group size for the dense MoE loop (bounds transients)."""
+    for g in (8, 5, 4, 2, 1):
+        if num_experts % g == 0:
+            return g
+    return 1
+
+
+def moe_route(cfg, p, xt):
+    """Router of ``moe``: xt (T, E) -> (float32 logits (T, NE), top-k
+    expert ids (T, K) in descending logit order, renormalised gates
+    (T, K)).  The router is read in float32 whatever the model's dtype:
+    a bf16 router flips top-k choices."""
+    logits = xt.to(F32) @ p["router"].to(F32)
+    topv, topi = torch.topk(logits, cfg.moe.top_k, dim=-1, sorted=True)
+    return logits, topi, torch.softmax(topv, -1)
+
+
+def moe_dispatch(cfg, topi, gates):
+    """Capacity-bucket plan of the sorted dispatch: the (token, expert)
+    assignments sorted stably by expert as (expert, token, gate), each
+    one's rank within its expert, the keep mask (rank < capacity) and the
+    capacity, ``ceil(T·K / NE · capacity_factor)``."""
+    m = cfg.moe
+    T, K = topi.shape
+    dev = topi.device
+    eid = topi.reshape(T * K)
+    order = torch.argsort(eid, stable=True)
+    se = eid[order]
+    st = torch.arange(T, device=dev).repeat_interleave(K)[order]
+    sg = gates.reshape(T * K)[order]
+    first = torch.searchsorted(se, se, side="left")
+    pos = torch.arange(T * K, device=dev) - first        # rank within expert
+    cap = int(np.ceil(T * K / m.num_experts * m.capacity_factor))
+    return se, st, sg, pos, pos < cap, cap
+
+
+def _moe_aux(cfg, logits, topi):
+    """Switch-style load-balance loss, returned for training."""
+    m = cfg.moe
+    me = torch.softmax(logits, -1).mean(0)
+    ce = torch.bincount(topi.reshape(-1), minlength=m.num_experts).to(F32) \
+        / topi.numel()
+    return m.num_experts * (me * ce).sum()
+
+
+def moe(cfg, p, x):
+    """x: (B, S, E) -> ((B, S, E), aux).  Two implementations:
+
+    "sorted": capacity-bucket dispatch (stable sort by expert, a scatter
+    into (NE, cap, E) buckets, the expert products, a gather back):
+    assignments ranked at or past an expert's capacity are dropped.
+
+    "dense": every expert on every token, weighted by the (masked,
+    renormalised top-k) gates; no token is dropped.  Expert groups are
+    looped to bound the (T, NE_g, dff) transient.
+    """
+    m = cfg.moe
+    B, S, E = x.shape
+    T = B * S
+    dt = x.dtype
+    xt = x.reshape(T, E)
+    logits, topi, gates = moe_route(cfg, p, xt)
+
+    if m.impl == "dense":
+        gate_full = torch.zeros((T, m.num_experts), dtype=F32,
+                                device=x.device).scatter(1, topi, gates)
+        GE = _dense_moe_group(m.num_experts)
+        out = torch.zeros((T, E), dtype=F32, device=x.device)
+        for i in range(0, m.num_experts, GE):
+            wg, wu, wd = (p[n][i:i + GE].to(dt)
+                          for n in ("we_gate", "we_up", "we_down"))
+            g = torch.einsum("td,xdf->txf", xt, wg)
+            u = torch.einsum("td,xdf->txf", xt, wu)
+            h = F.silu(g.to(F32)).to(dt) * u
+            y = torch.einsum("txf,xfd->txd", h, wd)
+            out = out + torch.einsum("txd,tx->td", y.to(F32),
+                                     gate_full[:, i:i + GE])
+        return out.reshape(B, S, E).to(dt), _moe_aux(cfg, logits, topi)
+
+    se, st, sg, pos, keep, cap = moe_dispatch(cfg, topi, gates)
+    # assignments past capacity go nowhere (the reference scatters them
+    # into an out-of-range expert row with mode="drop")
+    buf = torch.zeros((m.num_experts, cap, E), dtype=dt, device=x.device)
+    buf[se[keep], pos[keep]] = xt[st[keep]]
+    g = torch.einsum("xcd,xdf->xcf", buf, p["we_gate"].to(dt))
+    u = torch.einsum("xcd,xdf->xcf", buf, p["we_up"].to(dt))
+    h = F.silu(g.to(F32)).to(dt) * u
+    y = torch.einsum("xcf,xfd->xcd", h, p["we_down"].to(dt))
+    contrib = y[se, torch.clamp(pos, max=cap - 1)].to(F32) \
+        * (sg * keep)[:, None]
+    out = torch.zeros((T, E), dtype=F32, device=x.device).index_add_(
+        0, st, contrib)
+    return out.reshape(B, S, E).to(dt), _moe_aux(cfg, logits, topi)

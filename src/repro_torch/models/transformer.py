@@ -1,52 +1,80 @@
-"""Decoder LM of the dense family: init, forward, and paged decode.
+"""Decoder LM of every family: init, forward, and decode.
 
-Port of ``repro.models.transformer`` (dense branch).  Parameters are plain
-dicts; per-layer parameters are stacked along a leading L dim and the layer
-stack is a Python loop over it (the reference's ``lax.scan``).  The
-reference's ``shard(...)`` constraints are single-device no-ops and are
-dropped.  Matrices that the reference casts to the model's dtype at every
-use (``wq``, ``wk``, ``wv``, ``wo``, ``w_gate``, ``w_up``, ``w_down``, the
-embedding) are stored in that dtype, which gives the values the reference
-computes; norm scales and the LM head are read in float32 and stay so.
+Port of ``repro.models.transformer``.  Parameters are plain dicts;
+per-layer parameters are stacked along a leading L dim and the layer
+stack is a Python loop over it (the reference's ``lax.scan``).  Every
+family shares this file: dense / moe / audio / vlm are one block shape;
+hybrid (hymba) adds parallel SSM heads fused with the attention heads;
+ssm (mamba2) drops attention.  Hybrid full-attention layers sit at
+{0, L//2, L-1} (``layer_segments``); the others attend over a sliding
+window.  The reference's ``shard(...)`` constraints are single-device
+no-ops and are dropped (``param_logical_axes`` waits for the multi-device
+layer).  Matrices that the reference casts to the model's dtype at every
+use (``CAST_LEAVES``) are stored in that dtype, which gives the values
+the reference computes; norm scales, the router, the SSM's decay and
+skip vectors and the LM head are read in float32 and stay so.
 
-Decode runs against the hash-indexed paged KV pool (``serving/kvcache``):
-every step translates (sequence, logical page) through the continuity page
-table, writes the new token's k/v into its open page, and attends with the
-paged-attention kernel directly on the pool through the page table, with
-no gather.  The pools are updated in place.  Not ported yet: the moe, ssm
-and hybrid families and their decode steps.
+Full-attention families decode against the hash-indexed paged KV pool
+(``serving/kvcache``): every step translates (sequence, logical page)
+through the continuity page table, writes the new token's k/v into its
+open page, and attends with the paged-attention kernel directly on the
+pool through the page table, with no gather.  The pools are updated in
+place.  SSM and hybrid decode carry a state cache instead
+(``kvcache.create_state_cache``: recurrent state, conv windows, hybrid's
+ring buffers and global linear caches), also updated in place.
 """
 
 from __future__ import annotations
+
+from typing import List, Tuple
 
 import torch
 
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import kvcache as KC
 
 F32 = torch.float32
 # stored in the model's dtype (the reference casts them at every use)
 CAST_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_gate", "w_up",
-               "w_down")
+               "w_down", "we_gate", "we_up", "we_down", "w_fuse",
+               "ssm_in_proj", "ssm_out_proj", "ssm_conv_w")
+# read in float32 wherever they are used
+F32_LEAVES = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias",
+              "final_scale", "final_bias", "lm_head", "router",
+              "ssm_A_log", "ssm_D", "ssm_dt_bias", "ssm_ssm_norm",
+              "ssm_conv_b", "fuse_attn_scale", "fuse_ssm_scale")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def check_family(cfg: ModelConfig) -> None:
-    """Raise unless the port runs ``cfg``'s family (dense so far)."""
-    if cfg.moe is not None or cfg.ssm is not None or not cfg.has_attention:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP.md, Queue 1 #11)")
+def leaf_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """The port's storage dtype of parameter leaf ``name``."""
+    if name in F32_LEAVES:
+        return F32
+    if name == "embed":
+        return embed_dtype(cfg)
+    if name in CAST_LEAVES:
+        return _dtype(cfg)
+    raise ValueError(f"{cfg.name}: unknown parameter leaf {name!r}")
 
 
 def embed_dtype(cfg: ModelConfig) -> torch.dtype:
     """Tied embeddings double as the float32 LM head, so they stay f32."""
     return F32 if cfg.tie_embeddings else _dtype(cfg)
+
+
+def _require_paged(cfg: ModelConfig) -> None:
+    """The paged KV pool serves the full-attention families only."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family decodes through the state "
+            "cache (kvcache.create_state_cache, engine.serve_step with no "
+            "geometry), not the paged KV pool")
 
 
 # ---------------------------------------------------------------------------
@@ -55,17 +83,18 @@ def embed_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters on ``gen``'s device, drawn from ``gen``.  The
-    distributions are the reference's (normal * 0.02, unit norm scales);
-    the values differ from JAX's PRNG (``convert.params_from_numpy``
-    carries the reference's across).  Each layer's slice is drawn in
-    float32 and stored in its dtype, bounding the transient."""
-    check_family(cfg)
+    distributions are the reference's (normal * 0.02, unit norm scales,
+    Mamba-2's decay and dt inits); the values differ from JAX's PRNG
+    (``convert.params_from_numpy`` carries the reference's across).  Each
+    layer's slice is drawn in float32 and stored in its dtype, bounding
+    the transient."""
     E, Lh, V = cfg.d_model, cfg.n_layers, cfg.padded_vocab
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    dev, dt = gen.device, _dtype(cfg)
+    dev = gen.device
     sc = 0.02
 
-    def normal(shape, scale, dtype):
+    def normal(name, shape, scale=sc):
+        dtype = leaf_dtype(cfg, name)
         if len(shape) < 3:                  # not stacked per layer
             return (torch.randn(shape, generator=gen, device=dev, dtype=F32)
                     * scale).to(dtype)
@@ -82,35 +111,95 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     if cfg.norm == "ln":
         blocks["ln1_bias"] = const((Lh, E), 0.0)
         blocks["ln2_bias"] = const((Lh, E), 0.0)
-    blocks["wq"] = normal((Lh, E, H * D), sc, dt)
-    blocks["wk"] = normal((Lh, E, KVH * D), sc, dt)
-    blocks["wv"] = normal((Lh, E, KVH * D), sc, dt)
-    blocks["wo"] = normal((Lh, H * D, E), sc, dt)
-    if cfg.qkv_bias:
-        blocks["bq"] = const((Lh, H * D), 0.0, dt)
-        blocks["bk"] = const((Lh, KVH * D), 0.0, dt)
-        blocks["bv"] = const((Lh, KVH * D), 0.0, dt)
-    if cfg.d_ff:
+    if cfg.has_attention:
+        blocks["wq"] = normal("wq", (Lh, E, H * D))
+        blocks["wk"] = normal("wk", (Lh, E, KVH * D))
+        blocks["wv"] = normal("wv", (Lh, E, KVH * D))
+        if cfg.family != "hybrid":
+            blocks["wo"] = normal("wo", (Lh, H * D, E))
+        if cfg.qkv_bias:
+            for name, n in (("bq", H * D), ("bk", KVH * D), ("bv", KVH * D)):
+                blocks[name] = const((Lh, n), 0.0, _dtype(cfg))
+    if cfg.moe is not None:
+        m = cfg.moe
+        blocks["router"] = normal("router", (Lh, E, m.num_experts))
+        blocks["we_gate"] = normal("we_gate", (Lh, m.num_experts, E,
+                                               m.expert_dff))
+        blocks["we_up"] = normal("we_up", (Lh, m.num_experts, E,
+                                           m.expert_dff))
+        blocks["we_down"] = normal("we_down", (Lh, m.num_experts,
+                                               m.expert_dff, E))
+    elif cfg.d_ff:
         if cfg.mlp == "swiglu":
-            blocks["w_gate"] = normal((Lh, E, cfg.d_ff), sc, dt)
-        blocks["w_up"] = normal((Lh, E, cfg.d_ff), sc, dt)
-        blocks["w_down"] = normal((Lh, cfg.d_ff, E), sc, dt)
+            blocks["w_gate"] = normal("w_gate", (Lh, E, cfg.d_ff))
+        blocks["w_up"] = normal("w_up", (Lh, E, cfg.d_ff))
+        blocks["w_down"] = normal("w_down", (Lh, cfg.d_ff, E))
+    if cfg.ssm is not None:
+        layers = [S.init_ssm_params(gen, cfg) for _ in range(Lh)]
+        for k in layers[0]:
+            if k == "out_proj" and cfg.family == "hybrid":
+                continue               # the fused projection replaces it
+            blocks[f"ssm_{k}"] = torch.stack([lp[k] for lp in layers]).to(
+                leaf_dtype(cfg, f"ssm_{k}"))
+        del layers
+        if cfg.family == "hybrid":
+            d_inner = S.ssm_dims(cfg)[0]
+            assert d_inner == H * D, (d_inner, H * D)
+            blocks["fuse_attn_scale"] = const((Lh, H * D), 1.0)
+            blocks["fuse_ssm_scale"] = const((Lh, d_inner), 1.0)
+            blocks["w_fuse"] = normal("w_fuse", (Lh, H * D, E))
+    # tied embeddings double as the LM head: init small to keep initial
+    # logits O(1) (the first block norm makes the input side scale-free)
     params = {
-        "embed": normal((V, E), sc if cfg.tie_embeddings else 1.0,
-                        embed_dtype(cfg)),
+        "embed": normal("embed", (V, E), sc if cfg.tie_embeddings else 1.0),
         "blocks": blocks,
         "final_scale": const((E,), 1.0),
     }
     if cfg.norm == "ln":
         params["final_bias"] = const((E,), 0.0)
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((E, V), sc, F32)
+        params["lm_head"] = normal("lm_head", (E, V))
     return params
 
 
 def layer_params(params: dict, layer: int) -> dict:
     """One layer's slice of the stacked block parameters (views)."""
     return {k: v[layer] for k, v in params["blocks"].items()}
+
+
+def _ssm_leaves(p: dict) -> dict:
+    """A layer's SSM parameters without their ``ssm_`` prefix."""
+    return {k[4:]: v for k, v in p.items() if k.startswith("ssm_")}
+
+
+# ---------------------------------------------------------------------------
+# layer segmentation (static per-layer attention windows for hybrids)
+# ---------------------------------------------------------------------------
+
+def layer_segments(cfg: ModelConfig) -> List[Tuple[int, int, int]]:
+    """[(start, stop, window)] covering 0..L; window=0 means full attention.
+
+    Hybrids (hymba) use full attention at layers {0, L//2, L-1} and a
+    sliding window elsewhere; all other families are one segment.
+    """
+    Lh = cfg.n_layers
+    if cfg.family != "hybrid":
+        return [(0, Lh, cfg.window)]
+    glob = sorted({0, Lh // 2, Lh - 1})
+    segs, prev = [], 0
+    for g in glob:
+        if g > prev:
+            segs.append((prev, g, cfg.window))
+        segs.append((g, g + 1, 0))
+        prev = g + 1
+    if prev < Lh:
+        segs.append((prev, Lh, cfg.window))
+    return segs
+
+
+def layer_windows(cfg: ModelConfig) -> List[int]:
+    """Each layer's static attention window (0 = full), in layer order."""
+    return [w for a, b, w in layer_segments(cfg) for _ in range(a, b)]
 
 
 # ---------------------------------------------------------------------------
@@ -140,16 +229,52 @@ def _attn_heads(cfg, p, x, positions, window):
     return out.reshape(B, Sq, H * D), (k, v)
 
 
+def _ssm_part(cfg, p, h, apply_out: bool):
+    return S.ssd_forward(cfg, _ssm_leaves(p), h, apply_out=apply_out)
+
+
+def _fuse(cfg, p, attn, y_ssm, dt):
+    """Hybrid heads: each side RMS-normed, averaged, one projection."""
+    a = L.rmsnorm(attn, p["fuse_attn_scale"])
+    s_ = L.rmsnorm(y_ssm, p["fuse_ssm_scale"])
+    return ((a + s_) * 0.5).to(dt) @ p["w_fuse"].to(dt)
+
+
+def ffn(cfg, p, h2):
+    """The block's feed-forward on normed h2 (B, S, E): the MoE layer or
+    the MLP; returns (out, moe aux)."""
+    if cfg.moe is not None:
+        return L.moe(cfg, p, h2)
+    return L.mlp(cfg, p, h2), torch.zeros((), dtype=F32, device=h2.device)
+
+
 def _block_fwd(cfg: ModelConfig, x, p, window: int):
-    """One dense decoder block with a static attention window (0 = full)."""
-    check_family(cfg)
+    """One decoder block with a static attention window (0 = full)."""
     Sq = x.shape[1]
     positions = torch.arange(Sq, device=x.device)[None]
+    aux = torch.zeros((), dtype=F32, device=x.device)
+
+    if cfg.family == "hybrid":
+        h = L.apply_norm(cfg, p, "ln1", x)
+        attn, _ = _attn_heads(cfg, p, h, positions, window)
+        y_ssm = _ssm_part(cfg, p, h, apply_out=False)
+        x = x + _fuse(cfg, p, attn, y_ssm, x.dtype)
+        x = x + L.mlp(cfg, p, L.apply_norm(cfg, p, "ln2", x))
+        return x, aux
+
+    if cfg.family == "ssm":
+        h = L.apply_norm(cfg, p, "ln1", x)
+        x = x + _ssm_part(cfg, p, h, apply_out=True)
+        if cfg.d_ff:
+            x = x + L.mlp(cfg, p, L.apply_norm(cfg, p, "ln2", x))
+        return x, aux
+
+    # dense / moe / audio / vlm
     h = L.apply_norm(cfg, p, "ln1", x)
     attn, _ = _attn_heads(cfg, p, h, positions, window)
     x = x + attn @ p["wo"].to(x.dtype)
-    x = x + L.mlp(cfg, p, L.apply_norm(cfg, p, "ln2", x))
-    return x, torch.zeros((), dtype=F32, device=x.device)
+    out, aux = ffn(cfg, p, L.apply_norm(cfg, p, "ln2", x))
+    return x + out, aux
 
 
 def embed(cfg: ModelConfig, params: dict, inputs):
@@ -167,11 +292,12 @@ def final_norm(cfg: ModelConfig, params: dict, x):
 
 
 def forward(cfg: ModelConfig, params: dict, inputs):
-    """Token (B, S) / embedding (B, S, E) inputs -> (hidden (B,S,E), aux)."""
+    """Token (B, S) / embedding (B, S, E) inputs -> (hidden (B,S,E), moe
+    aux scalar).  Each layer runs with its segment's static window."""
     x = embed(cfg, params, inputs)
     aux = torch.zeros((), dtype=F32, device=x.device)
-    for layer in range(cfg.n_layers):
-        x, da = _block_fwd(cfg, x, layer_params(params, layer), cfg.window)
+    for layer, window in enumerate(layer_windows(cfg)):
+        x, da = _block_fwd(cfg, x, layer_params(params, layer), window)
         aux = aux + da
     return final_norm(cfg, params, x), aux
 
@@ -215,7 +341,7 @@ def _qkv_step(cfg, p, h, positions):
 
 def _ffn_step(cfg, p, x):
     h2 = L.apply_norm(cfg, p, "ln2", x)
-    return x + L.mlp(cfg, p, h2)
+    return x + ffn(cfg, p, h2[:, None])[0][:, 0]
 
 
 def _paged_layer_step(cfg, geom, p, x, kpool, vpool, page_table, cache):
@@ -255,7 +381,71 @@ def paged_decode_step(cfg: ModelConfig, params: dict, tokens, cache, geom):
     """tokens (B,) int -> (logits (B, V), cache).  The page table is
     re-translated through the continuity hash table every step (client
     reads); page opening/commit bookkeeping is in serving/engine.py."""
-    check_family(cfg)
+    _require_paged(cfg)
     page_table = KC.lookup_pages(geom, cache.table, cache.seq_ids)
     x = paged_layers(cfg, params, tokens, cache, geom, page_table)
     return logits_fn(cfg, params, final_norm(cfg, params, x)), cache
+
+
+def ssm_decode_step(cfg: ModelConfig, params: dict, tokens, cache):
+    """SSM decode: O(1) recurrent state per layer.  cache: {"S", "conv",
+    "seq_lens"} with leading layer dims on S/conv, updated in place;
+    returns (logits (B, V), the cache with ``seq_lens`` + 1)."""
+    x = embed(cfg, params, tokens)
+    for layer in range(cfg.n_layers):
+        p = layer_params(params, layer)
+        h = L.apply_norm(cfg, p, "ln1", x)
+        st = {"S": cache["S"][layer], "conv": cache["conv"][layer]}
+        y, st = S.ssd_decode(cfg, _ssm_leaves(p), h, st, apply_out=True)
+        cache["S"][layer] = st["S"]
+        cache["conv"][layer] = st["conv"]
+        x = x + y
+        if cfg.d_ff:
+            x = _ffn_step(cfg, p, x)
+    x = L.rmsnorm(x, params["final_scale"])
+    return logits_fn(cfg, params, x), dict(cache,
+                                           seq_lens=cache["seq_lens"] + 1)
+
+
+def ring_slot(seq_lens, window: int):
+    """A windowed layer's ring-buffer slot for the token at ``seq_lens``."""
+    return seq_lens % window
+
+
+def hybrid_decode_step(cfg: ModelConfig, params: dict, tokens, cache):
+    """Hybrid decode: ring-buffer window attention + linear caches for the
+    global layers + SSM state, all in parallel heads; layers in order with
+    their static windows.  The cache is updated in place; returns (logits
+    (B, V), the cache with ``seq_lens`` + 1).  Rope is applied at the
+    absolute position before a k is cached."""
+    x = embed(cfg, params, tokens)
+    seq_lens = cache["seq_lens"]                            # (B,)
+    B = x.shape[0]
+    W = cfg.window
+    rows = torch.arange(B, device=x.device)
+    wi = gi = 0
+    for layer, window in enumerate(layer_windows(cfg)):
+        p = layer_params(params, layer)
+        h = L.apply_norm(cfg, p, "ln1", x)
+        q, k, v = _qkv_step(cfg, p, h, seq_lens)
+        if window:                                          # ring buffer
+            kc, vc = cache["ring_k"][wi], cache["ring_v"][wi]
+            slot = ring_slot(seq_lens, W).long()
+            kc[rows, slot] = k.to(kc.dtype)
+            vc[rows, slot] = v.to(vc.dtype)
+            attn = L.decode_attention(q, kc, vc, seq_lens + 1, window=W)
+            wi += 1
+        else:                                               # global linear
+            kc, vc = cache["glob_k"][gi], cache["glob_v"][gi]
+            kc[rows, seq_lens.long()] = k.to(kc.dtype)
+            vc[rows, seq_lens.long()] = v.to(vc.dtype)
+            attn = L.decode_attention(q, kc, vc, seq_lens + 1)
+            gi += 1
+        st = {"S": cache["S"][layer], "conv": cache["conv"][layer]}
+        y_ssm, st = S.ssd_decode(cfg, _ssm_leaves(p), h, st, apply_out=False)
+        cache["S"][layer] = st["S"]
+        cache["conv"][layer] = st["conv"]
+        x = x + _fuse(cfg, p, attn.reshape(B, -1), y_ssm, x.dtype)
+        x = _ffn_step(cfg, p, x)
+    x = L.rmsnorm(x, params["final_scale"])
+    return logits_fn(cfg, params, x), dict(cache, seq_lens=seq_lens + 1)

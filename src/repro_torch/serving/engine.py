@@ -1,6 +1,7 @@
 """Batched decode engine: the paper's read/write protocol on the serving path.
 
-Port of ``repro.serving.engine`` (dense family).  ``serve_step``:
+Port of ``repro.serving.engine``.  ``serve_step`` of the full-attention
+families (dense, moe, audio, vlm):
   1. advance(): sequences crossing a page boundary get a physical page
      allocated and the (seq, page)->phys mapping INSERTED into the continuity
      hash table (server-side write: payload, then one atomic indicator
@@ -11,6 +12,10 @@ Port of ``repro.serving.engine`` (dense family).  ``serve_step``:
   3. the model decodes one token, attending over the pool through the page
      table with the paged-attention kernel;
   4. commit_token().
+
+The ssm and hybrid families step their state cache instead
+(``kvcache.create_state_cache``); prefill is theirs token by token
+through ``serve_step``.
 
 ``release_sequence`` returns a finished sequence's pages (hash-table
 deletes: one indicator-bit clear each, the paper's 1-PM-write deletion,
@@ -35,9 +40,15 @@ I32 = torch.int32
 CONTENT_SALT = 0x9E3779B9
 
 
-def serve_step(cfg: ModelConfig, geom: KC.PageGeometry, params: dict,
-               tokens: torch.Tensor, cache: KC.PagedCache):
-    """One decode step. tokens (B,) int -> (logits (B, V), cache)."""
+def serve_step(cfg: ModelConfig, geom: Optional[KC.PageGeometry],
+               params: dict, tokens: torch.Tensor, cache):
+    """One decode step for any family.  tokens (B,) int -> (logits (B, V),
+    cache): the ssm and hybrid families step their state cache
+    (``geom`` unused, None), the others the paged cache."""
+    if cfg.family == "ssm":
+        return T.ssm_decode_step(cfg, params, tokens, cache)
+    if cfg.family == "hybrid":
+        return T.hybrid_decode_step(cfg, params, tokens, cache)
     cache = KC.advance(geom, cache)
     logits, cache = T.paged_decode_step(cfg, params, tokens, cache, geom)
     return logits, KC.commit_token(cache)
@@ -55,7 +66,7 @@ def prefill(cfg: ModelConfig, geom: KC.PageGeometry, params: dict,
     multiple of page_size for the bulk page fill (pad upstream).
 
     Returns (last-position logits (B, V), cache)."""
-    T.check_family(cfg)
+    T._require_paged(cfg)
     DS, Bl, PS = geom.shards, geom.batch_per_shard, geom.page_size
     S = inputs.shape[1]
     if S % PS:
@@ -77,7 +88,7 @@ def prefill(cfg: ModelConfig, geom: KC.PageGeometry, params: dict,
         h = L.apply_norm(cfg, p, "ln1", x)
         attn, (k, v) = T._attn_heads(cfg, p, h, positions, cfg.window)
         x = x + attn @ p["wo"].to(x.dtype)
-        x = x + L.mlp(cfg, p, L.apply_norm(cfg, p, "ln2", x))
+        x = x + T.ffn(cfg, p, L.apply_norm(cfg, p, "ln2", x))[0]
         # bulk page fill: (B,S,KVH,D) -> (DS,Bl*NP,KVH,PS,D) -> pool scatter
         for pool, kv in ((cache.kpool[layer], k), (cache.vpool[layer], v)):
             kw = kv.reshape(DS, Bl, npages, PS, KVH, D).movedim(3, 4)

@@ -20,9 +20,12 @@ are int32 tensors holding the reference's uint32 bits.
 (what the batcher posts to a simulated transport); ``open_new_pages_traced``
 is the crash-checkable twin of the page allocation.
 
-Not ported yet: ``kv_dtype="int8"`` (``quant_store``/``dequant``), the
-``merged_attn`` decode path and the recurrent/window caches of the ssm and
-hybrid families.
+``create_state_cache`` is the cache of the ssm and hybrid families
+(recurrent state, conv windows, hybrid's ring buffers and global linear
+caches); those families never touch the page table.
+
+Not ported yet: ``kv_dtype="int8"`` (``quant_store``/``dequant``) and the
+``merged_attn`` decode path.
 """
 
 from __future__ import annotations
@@ -255,3 +258,38 @@ def advance(g: PageGeometry, cache: PagedCache) -> PagedCache:
 def commit_token(cache: PagedCache) -> PagedCache:
     """Post-step: the new token is now cached."""
     return cache._replace(seq_lens=cache.seq_lens + 1)
+
+
+# -- recurrent/window caches (ssm & hybrid families) --------------------------
+
+def create_state_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                       dtype=torch.bfloat16, device="cuda") -> dict:
+    """Cache for SSM (recurrent state) and hybrid (ring window + linear
+    global caches + recurrent state) architectures, on ``device``: ``S``
+    is float32, ``conv`` and the ring / global caches are ``dtype``."""
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    dev = resolve_device(device)
+    d_inner, nheads, conv_ch = S.ssm_dims(cfg)
+    s = cfg.ssm
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+    cache = {
+        "S": zeros((cfg.n_layers, batch, nheads, s.d_state, s.head_dim),
+                   torch.float32),
+        "conv": zeros((cfg.n_layers, batch, s.conv_width - 1, conv_ch), dtype),
+        "seq_lens": zeros((batch,), I32),
+    }
+    if cfg.family == "hybrid":
+        segs = T.layer_segments(cfg)
+        n_win = sum(b - a for a, b, w in segs if w)
+        n_glob = sum(b - a for a, b, w in segs if not w)
+        KVH, D = cfg.n_kv_heads, cfg.hd
+        cache.update(
+            ring_k=zeros((n_win, batch, cfg.window, KVH, D), dtype),
+            ring_v=zeros((n_win, batch, cfg.window, KVH, D), dtype),
+            glob_k=zeros((n_glob, batch, max_seq, KVH, D), dtype),
+            glob_v=zeros((n_glob, batch, max_seq, KVH, D), dtype),
+        )
+    return cache

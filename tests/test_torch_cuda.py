@@ -1068,3 +1068,152 @@ def test_chaos_cells_on_card_match_cpu(dev, name, workload):
     want = scenarios.run_scenario(name, workload=workload, seed=2,
                                   device="cpu")
     assert got == want and got["ok"], got["checks"]
+
+
+# -- the moe, ssm and hybrid families ----------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 6e-2)])
+@pytest.mark.parametrize("B,MAXP", [(16, 34), (4, 3), (7, 9)])
+def test_paged_attention_granite_shape(dev, dtype, tol, B, MAXP):
+    """granite-moe-3b's decode heads (H 24, KVH 8: G 3, D 64) against the
+    plain version, lengths across page boundaries; in bf16 also within
+    2 % of the largest plain output at the served length."""
+    args = on(attn_case(B * 7 + MAXP, B, 24, 8, 64, 16, MAXP), dev, dtype)
+    got = paged_attn.paged_attention(*args).float()
+    want = paged_attention_ref(*args).float()
+    assert float((got - want).abs().max()) < tol
+    if dtype == torch.bfloat16 and B == 16:
+        n = 16 * MAXP - 1
+        args = on(attn_case(11, B, 24, 8, 64, 16, MAXP, lens=[n] * B,
+                            q_scale=4.0), dev, dtype)
+        got = K.paged_attention(*args).float()
+        want = paged_attention_ref(*args).float()
+        assert float((got - want).abs().max()) <= min(
+            6e-2, 2e-2 * float(want.abs().max()))
+
+
+def _to(params, d):
+    p = {k: v.to(d) for k, v in params.items() if k != "blocks"}
+    p["blocks"] = {k: v.to(d) for k, v in params["blocks"].items()}
+    return p
+
+
+def test_moe_twin_served_on_card_matches_cpu(dev):
+    """The granite-moe twin through prefill, 6 decode steps and a release
+    on the card (probe, paged attention at G 3, mutate) against the CPU:
+    logits within 1e-4, page tables and small fields byte-equal."""
+    cfg = smoke_config("granite-moe-3b-a800m")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    shape = ShapeConfig("t", seq_len=128, global_batch=4, kind="decode")
+    rng = np.random.RandomState(3)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 32)).astype(
+        np.int32))
+    fed = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 6)).astype(np.int32))
+    runs = []
+    for d in ("cpu", "cuda"):
+        p = _to(params, d)
+        geom = KC.make_geometry(cfg, shape, shards=2, page_size=16, device=d)
+        n0 = paged_attn.paged_attention.launches
+        lg, cache = E.prefill(cfg, geom, p, prompt.to(d),
+                              KC.create_cache(geom))
+        logits = [lg]
+        for i in range(fed.shape[1]):
+            lg, cache = E.serve_step(cfg, geom, p, fed[:, i].to(d), cache)
+            logits.append(lg)
+        assert paged_attn.paged_attention.launches - n0 == (
+            fed.shape[1] * cfg.n_layers if d == "cuda" else 0)
+        cache = E.release_sequence(geom, cache, 1, 0)
+        runs.append((logits, convert.cache_to_numpy(cache)))
+    (lc, sc), (lg_, sg) = runs
+    for a, b in zip(lc, lg_):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+    for f in sc["table"]:
+        assert np.array_equal(sc["table"][f], sg["table"][f]), f
+    for f in ("next_free", "seq_ids", "seq_lens", "cur_page", "cur_off"):
+        assert np.array_equal(sc[f], sg[f]), f
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "hymba-1.5b"])
+def test_recurrent_twin_on_card_matches_cpu(dev, name):
+    """The ssm and hybrid twins' recurrent serve steps (70 tokens: past
+    the hybrid's 64-token window) on the card against the CPU: logits
+    within 2e-5, state caches within 2e-5, no kernel launched."""
+    cfg = smoke_config(name)
+    params = T.init_params(cfg, torch.Generator().manual_seed(1))
+    toks = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab, (2, 70)).astype(np.int32))
+    n0 = paged_attn.paged_attention.launches + probe.probe_segments.launches
+    runs = []
+    for d in ("cpu", "cuda"):
+        p = _to(params, d)
+        cache = KC.create_state_cache(cfg, 2, 80, dtype=torch.float32,
+                                      device=d)
+        out = []
+        for t in range(toks.shape[1]):
+            lg, cache = E.serve_step(cfg, None, p, toks[:, t].to(d), cache)
+            out.append(lg.cpu())
+        runs.append((out, convert.state_cache_to_numpy(cache)))
+    assert paged_attn.paged_attention.launches \
+        + probe.probe_segments.launches == n0
+    (lc, sc), (lg_, sg) = runs
+    for a, b in zip(lc, lg_):
+        torch.testing.assert_close(b, a, atol=2e-5, rtol=0)
+    assert np.array_equal(sc["seq_lens"], sg["seq_lens"])
+    for k in sc:
+        np.testing.assert_allclose(sg[k], sc[k], atol=2e-5, rtol=0,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "hymba-1.5b"])
+def test_graphed_step_matches_eager_on_card(dev, name):
+    """The launcher's graphed step (``serve.stepper`` on a state cache on
+    the card) against eager ``serve_step`` on the card over 70 tokens
+    (past the hybrid's 64-token window): logits and state caches within
+    2e-5, ``seq_lens`` equal; the graph refuses another cache."""
+    from repro_torch.launch import serve
+    cfg = smoke_config(name)
+    p = _to(T.init_params(cfg, torch.Generator().manual_seed(1)), "cuda")
+    toks = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab, (2, 70)).astype(np.int32)).cuda()
+    graphed = serve.make_state_cache(cfg, 2, 70, 10, device="cuda")
+    eager = serve.make_state_cache(cfg, 2, 70, 10, device="cuda")
+    step = serve.stepper(cfg, None, p, graphed)
+    assert isinstance(step, serve.GraphedStep)
+    for t in range(toks.shape[1]):
+        lg, graphed = step(toks[:, t], graphed)
+        want, eager = E.serve_step(cfg, None, p, toks[:, t], eager)
+        torch.testing.assert_close(lg, want, atol=2e-5, rtol=0)
+    sg = convert.state_cache_to_numpy(graphed)
+    se = convert.state_cache_to_numpy(eager)
+    assert np.array_equal(sg["seq_lens"], se["seq_lens"])
+    assert int(sg["seq_lens"][0]) == toks.shape[1]
+    for k in se:
+        np.testing.assert_allclose(sg[k], se[k], atol=2e-5, rtol=0,
+                                   err_msg=k)
+    with pytest.raises(ValueError):
+        step(toks[:, 0], eager)
+
+
+@pytest.mark.parametrize("name", ["starcoder2-15b", "minitron-8b",
+                                  "qwen1.5-32b", "musicgen-large",
+                                  "llava-next-34b", "granite-moe-1b-a400m",
+                                  "hymba-1.5b", "mamba2-370m"])
+def test_twin_forward_on_card_matches_cpu(dev, name):
+    """Each twin's forward (window and causal-skip attention, MoE, SSD)
+    on the card against the CPU, within 2e-5."""
+    import dataclasses
+    cfg = smoke_config(name)
+    if name == "starcoder2-15b":
+        cfg = dataclasses.replace(cfg, attn_mode="causal_skip")
+    params = T.init_params(cfg, torch.Generator().manual_seed(2))
+    rng = np.random.RandomState(5)
+    if cfg.frontend == "embed":
+        x = torch.from_numpy(rng.randn(2, 90, cfg.d_model).astype(np.float32))
+    else:
+        x = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 90)).astype(
+            np.int32))
+    want, aux = T.forward(cfg, params, x)
+    got, aux_g = T.forward(cfg, _to(params, "cuda"), x.cuda())
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+    torch.testing.assert_close(aux_g.cpu(), aux, atol=2e-5, rtol=0)

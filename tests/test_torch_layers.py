@@ -106,9 +106,84 @@ def test_mlp(mlp):
                  torch.from_numpy(x)))
 
 
-def test_unported_attention_modes_raise():
-    x = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError):
-        TL.blockwise_attention(x, x, x, chunk=4, window=2)
-    with pytest.raises(NotImplementedError):
-        TL.blockwise_attention(x, x, x, chunk=4, causal_skip=True)
+# (S, T extra keys before q (q_offset), chunk, window, KVH): ragged S,
+# windows below, at and above the chunk, a band wider than the keys
+WINDOW_CASES = [(40, 0, 16, 8, 2), (40, 0, 16, 16, 1), (64, 0, 16, 24, 2),
+                (33, 5, 8, 12, 4), (50, 7, 16, 64, 2), (96, 0, 32, 40, 1),
+                (17, 3, 64, 4, 2)]
+
+
+@pytest.mark.parametrize("S,q_offset,chunk,window,KVH", WINDOW_CASES)
+def test_window_attention(S, q_offset, chunk, window, KVH):
+    """The banded sliding-window branch against the reference's, with the
+    same clamped band start at the sequence's edges (2e-4 / 2e-3, as
+    ``tests/test_models.py`` holds the model-level window)."""
+    rng = np.random.RandomState(100 + S + window)
+    B, H, D = 2, 8, 16
+    q = randn(rng, B, S, H, D)
+    k = randn(rng, B, S + q_offset, KVH, D)
+    v = randn(rng, B, S + q_offset, KVH, D)
+    want = JL.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), chunk=chunk, window=window,
+                                  q_offset=q_offset)
+    got = TL.blockwise_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), chunk=chunk,
+                                 window=window, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=2e-3)
+
+
+def test_window_attention_masks_distant_keys():
+    """Keys at or beyond ``window`` positions back do not reach an output:
+    poisoning them leaves it unchanged."""
+    rng = np.random.RandomState(7)
+    S, W = 48, 8
+    q, k, v = (torch.from_numpy(randn(rng, 1, S, 4, 16)) for _ in range(3))
+    base = TL.blockwise_attention(q, k, v, chunk=16, window=W)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :S - W], v2[:, :S - W] = 1e3, -1e3
+    got = TL.blockwise_attention(q, k2, v2, chunk=16, window=W)
+    assert torch.equal(got[:, -1], base[:, -1])
+    assert not torch.equal(got[:, S - W], base[:, S - W])
+
+
+# (S, q_offset, chunk, KVH): ragged S and ragged keys (padded to a chunk)
+SKIP_CASES = [(40, 0, 16, 1), (64, 0, 16, 2), (33, 0, 8, 4), (100, 0, 64, 2),
+              (24, 8, 8, 2), (37, 3, 16, 1)]
+
+
+@pytest.mark.parametrize("S,q_offset,chunk,KVH", SKIP_CASES)
+def test_causal_skip_attention(S, q_offset, chunk, KVH):
+    """The online-softmax KV-chunk loop (chunk pairs above the diagonal
+    skipped) against the reference's ``lax.cond`` scan, and against the
+    masked mode where no skipped pair holds a live key (2e-4 / 2e-3)."""
+    rng = np.random.RandomState(200 + S)
+    B, H, D = 2, 8, 16
+    q = randn(rng, B, S, H, D)
+    k = randn(rng, B, S + q_offset, KVH, D)
+    v = randn(rng, B, S + q_offset, KVH, D)
+    want = JL.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), chunk=chunk,
+                                  q_offset=q_offset, causal_skip=True)
+    t = torch.from_numpy
+    got = TL.blockwise_attention(t(q), t(k), t(v), chunk=chunk,
+                                 q_offset=q_offset, causal_skip=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
+                               rtol=2e-3)
+    if q_offset == 0:
+        masked = TL.blockwise_attention(t(q), t(k), t(v), chunk=chunk)
+        np.testing.assert_allclose(got.numpy(), masked.numpy(), atol=2e-4,
+                                   rtol=2e-3)
+
+
+def test_decode_attention_window():
+    """Ring-buffer decode attention (liveness capped at the window)."""
+    rng = np.random.RandomState(8)
+    B, H, KVH, D, W = 3, 8, 2, 16, 12
+    q = randn(rng, B, H, D)
+    k, v = randn(rng, B, W, KVH, D), randn(rng, B, W, KVH, D)
+    lens = np.array([3, 12, 40], np.int32)
+    want = JL.decode_attention(*map(jnp.asarray, (q, k, v, lens)), window=W)
+    got = TL.decode_attention(*map(torch.from_numpy, (q, k, v, lens)),
+                              window=W)
+    close(want, got)

@@ -231,17 +231,28 @@ def test_geometry_and_device_rules():
             KC.make_geometry(cfg, shape, shards=2)
 
 
+ARCH_NAMES = ["starcoder2-15b", "minitron-8b", "qwen1.5-32b", "yi-6b",
+              "granite-moe-1b-a400m", "granite-moe-3b-a800m",
+              "musicgen-large", "hymba-1.5b", "llava-next-34b", "mamba2-370m"]
+
+
 @pytest.mark.parametrize("twin", [False, True])
-def test_configs_match_reference(twin):
-    """The port's Yi-6B config and its smoke twin equal the reference's,
-    field by field, with the same derived sizes."""
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_configs_match_reference(name, twin):
+    """Each of the reference's ten configs and its smoke twin equal the
+    port's, field by field, with the same derived sizes; the registry
+    holds all ten in the reference's order."""
+    from repro.configs import ARCHS as JARCHS
     from repro.configs import get_arch as jax_get_arch
-    from repro_torch.configs import get_arch
-    jc = jax_smoke_config("yi-6b") if twin else jax_get_arch("yi-6b")
-    tc = smoke_config("yi-6b") if twin else get_arch("yi-6b")
+    from repro_torch.configs import ARCHS, get_arch
+    assert list(ARCHS) == list(JARCHS) == ARCH_NAMES
+    jc = jax_smoke_config(name) if twin else jax_get_arch(name)
+    tc = smoke_config(name) if twin else get_arch(name)
     assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
-    assert (tc.hd, tc.padded_vocab, tc.param_count) == (
-        jc.hd, jc.padded_vocab, jc.param_count)
+    assert (tc.hd, tc.padded_vocab, tc.param_count, tc.active_param_count,
+            tc.sub_quadratic, tc.has_attention) == (
+        jc.hd, jc.padded_vocab, jc.param_count, jc.active_param_count,
+        jc.sub_quadratic, jc.has_attention)
 
 
 def test_oversubscribed_pool_matches():
