@@ -60,7 +60,7 @@ Phases, in order:
    size, ``begin_resize(step_slo_us=25)`` then 300 steps interleaved with
    routed update / delete / insert batches and dual reads, held against a
    host oracle (nothing lost or duplicated), ms per step beside
-   ``LinkModel.cohort_move_us``; then a 2**12-bucket stash table split to
+   ``LinkModel.cohort_move_us``; then a 2**11-bucket stash table split to
    completion and cut over, on the card and on the CPU, byte-equal; (d)
    ``consistency.matrix.run_rows`` on the card equal to the CPU's rows (4
    schemes x insert/update/delete and continuity's resize cell), and the
@@ -129,11 +129,23 @@ Phases, in order:
    every sequence released.  Page-table contents are checked exactly
    against the host-computed bump allocation; the last step's logits
    against the dense forward over the same tokens; a float32 twin (4
-   sequences, 512-token prompts) against its float32 forward, and one
+   sequences, 256-token prompts) against its float32 forward, and one
    float32 step with the kernel against the same step with the plain
    attention (within 6e-2), at the launcher's init and on the served
    weights.  The checks run outside the count: the launches reported are
    prefill's, the 63 steps' and the releases'.
+5b. Int8 KV pages at full width on phase 5's weights, launches counted
+   from 0: an int8 geometry of phase 5's shape (page size 16, 4,224
+   pages), the same 32 prompts prefilled and 31 greedy decode steps
+   through the paged-attention kernel's int8 mode, page tables exact, the
+   int8 prompt pages and their scales equal to ``quant_store`` of phase
+   5's bf16 prompt pages byte for byte (the port's int8 prefill repair);
+   the greedy tokens' agreement with phase 5's recorded; one more step
+   with every layer's int8 kernel output held in place against the int8
+   plain version, and the same step through the merged path
+   (``merged_attn``), which must launch no attention kernel; every
+   sequence released; the int8 kernel timed at B 32 beside its bound, its
+   plain version and the bf16 kernel on the same tokens unquantized.
 6. The continuous batcher on the same weights answers 48 requests in 32
    slots.
 6b. The other families at full width, through ``launch/serve``'s
@@ -165,19 +177,36 @@ Phases, in order:
    plus 8 decode steps on the card, equal to the same run in the CPU
    twins' process: integer state exact (page tables, ``seq_lens``, top-k
    ids), floats within 2e-5.
-7. Report: one JSON line of every kernel's launches (the TPU kernels' on
+7. Training at full width, every launch count set to 0 before: (a)
+   Yi-6B at its published widths cut to 8 of its 32 layers (float32
+   masters, remat "full"), 2 sequences of train_4k's 4,096 tokens in 2
+   microbatches: the bf16-compute loss and gradient norm against a
+   float32-compute step's on the same masters (1e-2 / 5 %), then 6 AdamW
+   steps of ``make_train_step`` on the repeated batch (finite, falling),
+   seconds per step, tokens/s and peak memory; (b) the ten smoke twins, 3
+   steps each on the launcher's batches, card losses within 1e-4 relative
+   of the CPU twins' process; (c) the restart drill on the yi-6b twin: 6
+   steps with an async save after step 4, an uncommitted .tmp save
+   ignored, a restore into a fresh init through a new manager and 2 more
+   steps whose losses equal the uninterrupted run's exactly.  The
+   training path launches no kernel (asserted).
+8. Report: one JSON line of every kernel's launches (the TPU kernels' on
    the serving path, phase 5; the serial walk's on the baselines path,
    phase 3c; probe and mutate also on the cluster path, phase 3f, as
    ``cluster_launches``, and on the cache and chaos path, phase 3g, as
    ``cache_launches``; every kernel's on the moe path, phase 6b (a), as
-   ``moe_launches``, and attention's times at that path's decode shape as
-   ``moe_shape``), error, times and bound; the card's name and power
-   limit;
+   ``moe_launches``, on the training path, phase 7, as
+   ``train_launches``, and attention's times at the moe path's decode
+   shape as ``moe_shape``; the int8 mode as its own row,
+   ``int8_attention``, with its launches on the int8 path of phase 5b,
+   and the merged path's attention launches as ``merged_launches``),
+   error, times and bound; the card's name and power limit;
    last ``{"ok": true, "device": {...}}``.
 
-The CPU twins that phases 3e ((c)'s small split), 3f (a), 3g (a) and 6b
-(d) hold the card against run in a spawned process of their own from the
-start; every process the script starts is ended before it exits.  Any failed
+The CPU twins that phases 3e ((c)'s small split), 3f (a), 3g (a), 6b
+(d) and 7 (b) hold the card against run in a spawned process of their
+own from the start; every process the script starts is ended before it
+exits.  Any failed
 check raises.  Without a CUDA device it exits non-zero and prints no
 result.
 """
@@ -255,7 +284,8 @@ CHILD_WAIT_S = 900             # the longest wait for a child process
 
 def _cpu_twin_runs(torch) -> dict:
     """{(phase, name): fn(device)}: the runs whose card payloads phases
-    3e, 3f (a), 3g (a) and 6b (d) hold against the same run on the CPU."""
+    3e, 3f (a), 3g (a), 6b (d) and 7 (b) hold against the same run on the
+    CPU."""
     from repro_torch import api, convert
     from repro_torch.data import ycsb
     runs = {("3e", "small split"): lambda d: _small_split(
@@ -264,6 +294,8 @@ def _cpu_twin_runs(torch) -> dict:
     runs.update({("3g", n): fn for n, fn in _cache_runs().items()})
     from repro_torch.configs import ARCHS
     runs.update({("6b", n): (lambda d, n=n: _family_twin(n, d))
+                 for n in ARCHS})
+    runs.update({("7", n): (lambda d, n=n: _train_twin(n, d))
                  for n in ARCHS})
     return runs
 
@@ -1306,7 +1338,9 @@ SERIAL_B = 2_048               # serial-oracle batches on the full-size table
 SPLIT_SLO_US = 25.0            # begin_resize's stall target (4 cohorts/step)
 SPLIT_STEPS = 300              # bounded online-split steps at full size
 SPLIT_WRITES_EVERY = 10        # a routed write batch every this many steps
-SMALL_SPLIT_BUCKETS = 2 ** 12  # the split run to completion, card vs CPU
+# the split run to completion, card vs CPU; its size is cut for the
+# smoke's time limit (PERF.md section 4)
+SMALL_SPLIT_BUCKETS = 2 ** 11
 SMALL_SPLIT_LOAD = 0.9         # of its main slots: engages the stash tier
 
 
@@ -2142,6 +2176,29 @@ def _attn_limit(want) -> float:
     return min(ATTN_TOL["bfloat16"], ATTN_REL * float(want.abs().max()))
 
 
+ATTN_ITEM = {"bf16": 2, "float32": 4, "int8": 1}   # bytes per K/V value
+
+
+def _attn_bytes(mode, B, H, KVH, D, MAXP, last) -> int:
+    """The bytes a decode attention step must move in ``mode`` (the K/V
+    pools' dtype): each live token's K and V rows once, with their float32
+    scales when int8; q and out (float32 in the float32 mode, else bf16);
+    the page table and the lengths."""
+    scales = 2 * 4 if mode == "int8" else 0
+    q_item = 4 if mode == "float32" else 2
+    return (B * last * KVH * (2 * D * ATTN_ITEM[mode] + scales)
+            + 2 * B * H * D * q_item + B * MAXP * 4 + B * 4)
+
+
+def _quantized(a):
+    """An attention case ``(q, kpool, vpool, pt, lens)`` with its pools
+    through ``quant_store``: (args, {"kscale", "vscale"})."""
+    from repro_torch.serving import kvcache as KC
+    q, kp, vp, pt, lens = a
+    (kq, ks), (vq, vs) = KC.quant_store(kp), KC.quant_store(vp)
+    return (q, kq, vq, pt, lens), {"kscale": ks, "vscale": vs}
+
+
 def attention_timing(torch, B, H, KVH, D, MAXP, NP, last, seed, card):
     """The kernel at one decode shape (``B`` sequences of ``last`` tokens
     on a pool of ``NP`` pages, bf16, scores of std 1.2): held within
@@ -2186,9 +2243,7 @@ def attention_timing(torch, B, H, KVH, D, MAXP, NP, last, seed, card):
     lib_out = sdpa(*dense_b[0], enable_gqa=True)[:, :, 0]
     _check(float((lib_out.float() - kern(*full).float()).abs().max())
            < ATTN_TOL["bfloat16"], "the library call computes the same")
-    nbytes = (B * last * KVH * D * 2 * 2          # live K and V rows, bf16
-              + 2 * B * H * D * 2                 # q and out
-              + B * MAXP * 4 + B * 4)             # page table and lengths
+    nbytes = _attn_bytes("bf16", B, H, KVH, D, MAXP, last)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     splits = _cuda.paged_attn_splits(
         B * KVH, MAXP, _cuda.sm_count(0), _cuda.resident_blocks(
@@ -2335,11 +2390,13 @@ def _uncounted(run):
     kerns = (probe.probe_segments, mutate.mutate_segments,
              paged_attn.paged_attention, scan_walk.scan_walk)
     saved = [k.launches for k in kerns]
+    saved_int8 = paged_attn.paged_attention.int8_launches
     try:
         return run()
     finally:
         for k, n in zip(kerns, saved):
             k.launches = n
+        paged_attn.paged_attention.int8_launches = saved_int8
 
 
 def _swap_attention(attention, run):
@@ -2410,7 +2467,7 @@ def float32_twin(torch, cfg, params, prompts, what) -> float:
     from repro_torch.models import transformer as T
     from repro_torch.serving import kvcache as KC
     cfg32, p32 = _float32(torch, cfg, params)
-    B32, P32, G32 = CHECK_SEQS, 512, 8
+    B32, P32, G32 = CHECK_SEQS, 256, 8     # prompts cut for the time limit
     g32 = serve.make_geometry(cfg32, B32, P32, G32, page_size=PAGE_SIZE,
                               shards=1, device="cuda")
     lg32, c32 = serve.run_prefill(cfg32, g32, p32, prompts[:B32, :P32],
@@ -2443,8 +2500,9 @@ def float32_twin(torch, cfg, params, prompts, what) -> float:
 
 
 def serving_phase(torch, card):
-    """Phase 5; returns (cfg, params) for phase 6 and the kernels'
-    launches on the serving path."""
+    """Phase 5; returns (cfg, params) for phases 5b and 6, the kernels'
+    launches on the serving path, and what phase 5b holds its int8 path
+    against: the bf16 cache (its pools) and the generated tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
@@ -2491,6 +2549,7 @@ def serving_phase(torch, card):
     for k in (probe.probe_segments, mutate.mutate_segments,
               paged_attn.paged_attention):
         k.launches = 0
+    paged_attn.paged_attention.int8_launches = 0
     (lg, cache), t_pre = _timed(torch, lambda: serve.run_prefill(
         cfg, geom, params, prompts, cache))
     _check(lg.shape == (SERVE_B, cfg.vocab) and bool(lg.isfinite().all()),
@@ -2623,9 +2682,206 @@ def serving_phase(torch, card):
           flush=True)
     for name, n in launches.items():
         _check(n > 0, f"the serving path launched {name}")
+    _check(paged_attn.paged_attention.int8_launches == 0,
+           "the bf16 serving path launches no int8 attention")
     _check(launches["paged_attention"] == n_steps * cfg.n_layers,
            "one attention launch per layer per decode step")
-    return cfg, params, launches
+    return cfg, params, launches, {"cache": cache, "toks": toks}
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: int8 KV pages at full width, and the merged decode path
+# ---------------------------------------------------------------------------
+
+INT8_GEN = 32                  # generated tokens: prefill's + 31 steps
+
+
+def _prompts(torch, cfg):
+    """Phase 5's prompts (the same seed)."""
+    return torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab, (SERVE_B, PROMPT_LEN)).astype(np.int32)).cuda()
+
+
+def _int8_prompt_pages(torch, cache, bf16_cache, npages) -> None:
+    """The int8 pools' and scales' prompt pages equal ``quant_store`` of the
+    bf16 prefill's pages, byte for byte, layer by layer."""
+    from repro_torch.serving import kvcache as KC
+    for pools, scales, ref in ((cache.kpool, cache.kscale, bf16_cache.kpool),
+                               (cache.vpool, cache.vscale, bf16_cache.vpool)):
+        for layer in range(pools.shape[0]):
+            q, sc = KC.quant_store(ref[layer, :, :npages])
+            _check(torch.equal(pools[layer, :, :npages], q)
+                   and torch.equal(scales[layer, :, :npages], sc),
+                   f"layer {layer}: the int8 prompt pages are quant_store of "
+                   f"the bf16 prefill's, byte for byte")
+
+
+def int8_attention_timing(torch, B, H, KVH, D, MAXP, NP, last, seed, card):
+    """The int8 mode at one decode shape: phase 4's bf16 case (scores of
+    std 1.2) with its pools quantized by ``quant_store``, held within
+    ``_attn_limit`` of the int8 plain version (a limit an output one token
+    or one page short breaks), timed on the device beside its bound, its
+    plain version and the bf16 kernel on the unquantized pools.  Returns
+    (max_abs_err, ms, plain_ms, bound_ms, bf16_ms)."""
+    from repro_torch.kernels import paged_attn
+    from repro_torch.kernels.paged_attn_ref import paged_attention_ref
+    kern, plain = paged_attn.paged_attention, paged_attention_ref
+    PS = PAGE_SIZE
+    bf16 = [_attn_case(torch, seed + i, B, H, KVH, D, PS, MAXP, NP=NP,
+                       lens=[last] * B, dtype=torch.bfloat16, q_scale=4.0)
+            for i in range(4)]
+    batches = [_quantized(a) for a in bf16]
+    full, sc = batches[0]
+    want = plain(*full, **sc).float()
+    limit = _attn_limit(want)
+    err = float((kern(*full, **sc).float() - want).abs().max())
+    _check(err <= limit, f"B={B} H={H} D={D} int8 paged attention within "
+           f"{limit:.3g} of its plain version ({err})")
+    q, kq, vq, pt, lens = full
+    for cut, what in ((1, "its last token"), (PS, "its last page")):
+        moved = float((plain(q, kq, vq, pt, lens - cut, **sc).float()
+                       - want).abs().max())
+        _check(moved > limit, f"the int8 limit rejects an output that "
+               f"drops {what} ({moved} vs {limit:.3g})")
+    ms = _device_ms(torch, lambda a: kern(*a[0], **a[1]), batches, 100,
+                    KERNEL_SLEEP)
+    plain_ms = _device_ms(torch, lambda a: plain(*a[0], **a[1]), batches, 10,
+                          PLAIN_SLEEP)
+    bf16_ms = _device_ms(torch, lambda a: kern(*a), bf16, 100, KERNEL_SLEEP)
+    nbytes = _attn_bytes("int8", B, H, KVH, D, MAXP, last)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"int8 paged_attention: {ms * 1e3:.2f} us on the device per "
+          f"launch at B={B} H={H} KVH={KVH} D={D} PS={PS} len={last} (bound "
+          f"{bound_ms * 1e3:.2f} us from {nbytes / 1e6:.2f} MB; plain "
+          f"version {plain_ms * 1e3:.2f} us; the bf16 kernel on the same "
+          f"tokens unquantized {bf16_ms * 1e3:.2f} us; no single library "
+          f"call takes int8 K/V); max_abs_err {err:.3g}, limit {limit:.3g} "
+          f"[{card}]", flush=True)
+    del batches, bf16, full, sc, q, kq, vq
+    torch.cuda.empty_cache()
+    return err, ms, plain_ms, bound_ms, bf16_ms
+
+
+def int8_phase(torch, cfg, params, served, card) -> dict:
+    """Phase 5b; returns the int8 kernel's report row, its launches on the
+    int8 path."""
+    import dataclasses
+    from repro_torch.kernels import paged_attn
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import kvcache as KC
+    geom = serve.make_geometry(cfg, SERVE_B, PROMPT_LEN, GEN,
+                               page_size=PAGE_SIZE, shards=1,
+                               kv_dtype="int8", device="cuda")
+    MAXP, PS = geom.max_pages, PAGE_SIZE
+    npre = PROMPT_LEN // PS
+    cache = KC.create_cache(geom)
+    prompts = _prompts(torch, cfg)
+    pool_gb = sum(t.numel() * t.element_size() for t in (
+        cache.kpool, cache.vpool, cache.kscale, cache.vscale)) / 1e9
+    print(f"phase 5b: int8 KV pages, pool {geom.pool_pages} pages x {MAXP} "
+          f"per sequence, {pool_gb:.2f} GB with the scales (phase 5's bf16 "
+          f"pool: {2 * served['cache'].kpool.numel() * 2 / 1e9:.2f} GB) "
+          f"[{card}]", flush=True)
+
+    def check_table(c, n_dec, lens, off, what):
+        _check_pages(geom, c, npre, n_dec, lens, off, f"int8 {what}")
+
+    _reset_launches()
+    (lg, cache), t_pre = _timed(torch, lambda: serve.run_prefill(
+        cfg, geom, params, prompts, cache))
+    _check(bool(lg.isfinite().all()), "int8 prefill logits finite")
+    _uncounted(lambda: check_table(cache, 0, PROMPT_LEN, 0, "after prefill"))
+    (toks, lg, cache), t_dec = _timed(torch, lambda: serve.run_decode(
+        cfg, geom, params, lg, cache, INT8_GEN))
+    n_steps = INT8_GEN - 1
+    lens = PROMPT_LEN + n_steps
+    _uncounted(lambda: check_table(cache, -(-lens // PS) - npre, lens,
+                                   (lens - 1) % PS, "after decode"))
+    _check(bool(lg.isfinite().all()), "int8 decode logits finite")
+    _int8_prompt_pages(torch, cache, served["cache"], SERVE_B * npre)
+    top1 = float((toks == served["toks"][:, :INT8_GEN]).float().mean())
+    print(f"phase 5b: prefill {SERVE_B} x {PROMPT_LEN} tokens in "
+          f"{t_pre:.3f} s = {SERVE_B * PROMPT_LEN / t_pre:.0f} tokens/s; "
+          f"decode {n_steps} steps in {t_dec:.3f} s "
+          f"({t_dec / n_steps * 1e3:.2f} ms per step); page tables exact; "
+          f"prompt pages and scales equal quant_store of phase 5's bf16 "
+          f"pages byte for byte; greedy tokens equal phase 5's bf16 ones at "
+          f"{top1:.4f} of {toks.numel()} positions (recorded, not gated) "
+          f"[{card}]", flush=True)
+
+    # one more step on the same state (uncommitted): every layer's int8
+    # kernel output held against the int8 plain version on that layer's
+    # inputs; then the merged path, which must launch no attention kernel
+    def check_step():
+        tok = lg.argmax(-1).to(torch.int32)
+        c = KC.advance(geom, cache)
+        pt = KC.lookup_pages(geom, c.table, c.seq_ids)
+
+        def logits(g):
+            x = T.paged_layers(cfg, params, tok, c, g, pt)
+            return T.logits_fn(cfg, params, T.final_norm(cfg, params, x))
+        layer_err = _in_situ_attention(lambda: logits(geom))
+        lg_k = logits(geom)
+        merged = dataclasses.replace(geom, merged_attn=True)
+        pa = paged_attn.paged_attention
+        n0 = pa.launches + pa.int8_launches
+        lg_m, t_m = _timed(torch, lambda: logits(merged))
+        return (layer_err, pa.launches + pa.int8_launches - n0, lg_k,
+                lg_m, t_m)
+    layer_err, merged_launches, lg_k, lg_m, t_m = _uncounted(check_step)
+    worst = max(layer_err, key=lambda el: el[0] / el[1])
+    _check(len(layer_err) == cfg.n_layers
+           and all(e <= lim for e, lim in layer_err),
+           f"in the int8 decode step, every layer's kernel attention equals "
+           f"the int8 plain version on the same inputs (worst {worst[0]} "
+           f"against its limit {worst[1]:.3g})")
+    _check(merged_launches == 0, f"the merged path launches no attention "
+           f"kernel ({merged_launches})")
+    err_m = float((lg_m - lg_k).abs().max())
+    _check(err_m <= FORWARD_TOL, f"the merged path's logits agree with the "
+           f"int8 kernel's ({err_m})")
+    print(f"phase 5b: one int8 decode step, kernel vs plain int8 attention "
+          f"on each layer's own inputs: max_abs_err "
+          f"{max(e for e, _ in layer_err):.3g} over {len(layer_err)} layers "
+          f"(tightest limit {min(lim for _, lim in layer_err):.3g}); the "
+          f"merged path (merged_attn=True): {merged_launches} attention "
+          f"launches, layer stack and logits {t_m * 1e3:.1f} ms, logits vs "
+          f"the kernel's {_diff_stats(torch, lg_m, lg_k)} [{card}]",
+          flush=True)
+
+    def release_all(c):
+        for b in range(SERVE_B):
+            c = E.release_sequence(geom, c, 0, b)
+        return c
+    cache = release_all(cache)
+    _check(_count(cache) == 0, "the int8 page table is empty after release")
+    launches = _kernel_launches()
+    _check(launches["int8_attention"] == launches["paged_attention"]
+           == n_steps * cfg.n_layers,
+           "one int8 attention launch per layer per decode step, and no "
+           "attention launch of another mode")
+    for name in ("probe_segments", "mutate_segments"):
+        _check(launches[name] > 0, f"the int8 path launched {name}")
+    print(f"phase 5b: int8 path kernel launches {launches}; device memory "
+          f"in use {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB "
+          f"[{card}]", flush=True)
+    del cache, lg_k, lg_m
+    served.clear()
+    torch.cuda.empty_cache()
+    MAXP = -(-(PROMPT_LEN + GEN) // PS)
+    err, ms, plain_ms, bound_ms, bf16_ms = int8_attention_timing(
+        torch, SERVE_B, cfg.n_heads, cfg.n_kv_heads, cfg.hd, MAXP,
+        SERVE_B * MAXP, PROMPT_LEN + GEN - 1, 30, card)
+    return {"name": "int8_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+            "replaces": "src/repro/kernels/paged_attn.py:80",
+            "launches": launches["int8_attention"],
+            "max_abs_err": max(err, max(e for e, _ in layer_err)),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None, "bf16_kernel_ms": bf16_ms,
+            "merged_launches": merged_launches, "top1_vs_bf16": top1}
 
 
 # ---------------------------------------------------------------------------
@@ -2700,6 +2956,7 @@ def _kernel_launches() -> dict:
     return {"probe_segments": probe.probe_segments.launches,
             "mutate_segments": mutate.mutate_segments.launches,
             "paged_attention": paged_attn.paged_attention.launches,
+            "int8_attention": paged_attn.paged_attention.int8_launches,
             "scan_walk": scan_walk.scan_walk.launches}
 
 
@@ -2708,6 +2965,7 @@ def _reset_launches() -> None:
     for k in (probe.probe_segments, mutate.mutate_segments,
               paged_attn.paged_attention, scan_walk.scan_walk):
         k.launches = 0
+    paged_attn.paged_attention.int8_launches = 0
 
 
 class _StepLog:
@@ -2873,6 +3131,8 @@ def moe_phase(torch, card) -> tuple:
         _check(launches[name] > 0, f"the moe path launched {name}")
     _check(launches["paged_attention"] == n_steps * cfg.n_layers,
            "one attention launch per layer per decode step")
+    _check(launches["int8_attention"] == 0,
+           "the bf16 moe path launches no int8 attention")
 
     # the float32 twin: decode against its own forward, nothing dropped
     def twin():
@@ -3111,7 +3371,8 @@ def _family_twin(name, device) -> dict:
     if recurrent:
         state = convert.state_cache_to_numpy(cache)
     else:
-        state = convert.cache_to_numpy(cache)
+        state = {k: v for k, v in convert.cache_to_numpy(cache).items()
+                 if v is not None}       # a float cache has no scales
         state.update({f"table.{k}": v for k, v in state.pop("table").items()})
     out.update(state)
     out.update({f"topk_{i}": a for i, a in enumerate(topk)})
@@ -3161,6 +3422,203 @@ def families_phase(torch, card, twins) -> tuple:
           f"{t_card:.1f} s; (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
           f"{t3 - t2:.1f} s [{card}]", flush=True)
     return launches, timing
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 8               # of Yi-6B's 32: float32 masters, gradients
+                               # and two moments take ~30.5 GB (all 32: ~97)
+TRAIN_B, TRAIN_SEQ, TRAIN_MICRO = 2, 4_096, 2   # train_4k's sequence length
+TRAIN_STEPS = 6
+# lr 1e-5: at d 4096, lr 1e-3 (5e-4 in the first, sign-like Adam step)
+# dropped the repeated batch's loss from 11.9 to 0.07 in one step, and
+# the next steps oscillated (0.68, 4.72, 1.30, 0.62)
+TRAIN_OPT = dict(lr=1e-5, warmup=2, decay_steps=100)
+BF16_LOSS_REL, BF16_NORM_REL = 1e-2, 0.05      # bf16 against float32 compute
+TRAIN_TWIN_STEPS, TRAIN_TWIN_B, TRAIN_TWIN_SEQ = 3, 2, 64
+TRAIN_TWIN_REL = 1e-4          # (b): card vs CPU losses, relative
+DRILL_STEPS, DRILL_SAVE = 6, 4  # (c): uninterrupted steps, the saved step
+
+
+def _train_twin(name, device) -> dict:
+    """7 (b): ``TRAIN_TWIN_STEPS`` AdamW steps of ``name``'s smoke twin on
+    ``device`` from float32 masters drawn on the CPU from ``SEED``, on the
+    train launcher's batches; {"loss_<i>": loss}."""
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import make_train_step
+    cfg = smoke_config(name)
+    p = T.init_params(cfg, torch.Generator().manual_seed(SEED),
+                      master_dtype=torch.float32)
+    p = O.tree_map(lambda t: t.to(device), p)
+    state = O.init(p)
+    step = make_train_step(cfg, O.OptConfig(**TRAIN_OPT))
+    out = {}
+    for i in range(TRAIN_TWIN_STEPS):
+        p, state, stats = step(p, state, launch_train.synthetic_batch(
+            cfg, SEED, i, TRAIN_TWIN_B, TRAIN_TWIN_SEQ, device))
+        out[f"loss_{i}"] = float(stats["loss"])
+    return out
+
+
+def _restart_drill(torch, card) -> str:
+    """7 (c): ``smoke_config("yi-6b")`` on the card, ``DRILL_STEPS`` steps
+    with an async save after step ``DRILL_SAVE``, a .tmp directory of an
+    interrupted later save, a restore into a fresh init through a new
+    manager and the remaining steps: their losses equal the uninterrupted
+    run's exactly."""
+    import os
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import make_train_step
+    cfg = smoke_config("yi-6b")
+    step = make_train_step(cfg, O.OptConfig(**TRAIN_OPT))
+    batches = [launch_train.synthetic_batch(cfg, SEED, i, 4, 64, "cuda")
+               for i in range(DRILL_STEPS)]
+
+    def fresh():
+        p = T.init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                          master_dtype=torch.float32)
+        return p, O.init(p)
+    with tempfile.TemporaryDirectory() as d:
+        p, state = fresh()
+        mgr = CheckpointManager(d, async_save=True)
+        losses = []
+        for i in range(DRILL_STEPS):
+            p, state, stats = step(p, state, batches[i])
+            losses.append(float(stats["loss"]))
+            if i + 1 == DRILL_SAVE:
+                mgr.save(DRILL_SAVE, {"p": p, "o": state})
+        mgr.wait()
+        tmp = os.path.join(d, f"step_{DRILL_STEPS:09d}.tmp")
+        os.makedirs(tmp)                 # an interrupted save: no commit
+        np.save(os.path.join(tmp, "p.embed.npy"), np.zeros(4, np.float32))
+        mgr = CheckpointManager(d)
+        _check(mgr.latest_step() == DRILL_SAVE, "an uncommitted .tmp save "
+               "is invisible to restart")
+        restored, at, _ = mgr.restore(dict(zip("po", fresh())))
+        _check(at == DRILL_SAVE and int(restored["o"].step) == DRILL_SAVE,
+               "the newest committed step is restored")
+        p, state = restored["p"], restored["o"]
+        again = []
+        for i in range(DRILL_SAVE, DRILL_STEPS):
+            p, state, stats = step(p, state, batches[i])
+            again.append(float(stats["loss"]))
+    _check(again == losses[DRILL_SAVE:], f"the restarted run's losses equal "
+           f"the uninterrupted run's exactly ({again} vs "
+           f"{losses[DRILL_SAVE:]})")
+    return (f"losses {[round(x, 6) for x in losses]}, after the restart "
+            f"{[round(x, 6) for x in again]} (equal)")
+
+
+def training_phase(torch, card, twins) -> dict:
+    """Phase 7; returns the kernels' launches on the training path (all 0,
+    as in the reference: its training path reaches no Pallas kernel)."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import (make_train_step,
+                                                 microbatch_grads)
+    import gc
+    t0 = time.perf_counter()
+    gc.collect()                  # the earlier phases' cycles (graphs, caches)
+    torch.cuda.empty_cache()
+    in_use = torch.cuda.memory_allocated() / 2 ** 30
+    _reset_launches()
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=TRAIN_LAYERS,
+                              remat="full")
+    params, t_init = _timed(torch, lambda: T.init_params(
+        cfg, torch.Generator("cuda").manual_seed(SEED),
+        master_dtype=torch.float32))
+    n_params = sum(t.numel() for _, t in O.leaves(params))
+    rng = np.random.RandomState(SEED + 7)
+    toks = rng.randint(0, cfg.vocab, (TRAIN_B, TRAIN_SEQ)).astype(np.int32)
+    batch = {"inputs": torch.from_numpy(toks).cuda(),
+             "labels": torch.from_numpy(np.roll(toks, -1, 1)).cuda()}
+    print(f"phase 7: {cfg.name} at its published widths, {TRAIN_LAYERS} of "
+          f"32 layers, remat {cfg.remat}: {n_params / 1e9:.3f} B float32 "
+          f"master parameters made in {t_init:.2f} s; {TRAIN_B} x "
+          f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches; device memory "
+          f"in use before {in_use:.3f} GiB [{card}]", flush=True)
+
+    # the bf16-compute gradients against float32-compute ones, same masters
+    stats = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        (loss, grads), t = _timed(torch, lambda: microbatch_grads(
+            c, params, batch, TRAIN_MICRO, torch.float32))
+        stats[dtype] = (float(loss), float(O.global_norm(grads)), t)
+        del grads
+        torch.cuda.empty_cache()
+    (l16, n16, t16), (l32, n32, t32) = stats["bfloat16"], stats["float32"]
+    print(f"phase 7 (a): bf16 compute loss {l16:.6f}, gradient norm "
+          f"{n16:.6f} ({t16:.2f} s); float32 compute loss {l32:.6f}, norm "
+          f"{n32:.6f} ({t32:.2f} s); relative {abs(l16 - l32) / l32:.3g} / "
+          f"{abs(n16 - n32) / n32:.3g} (limits {BF16_LOSS_REL} / "
+          f"{BF16_NORM_REL})", flush=True)
+    _check(abs(l16 - l32) <= BF16_LOSS_REL * abs(l32), "the bf16-compute "
+           "loss within 1e-2 of the float32-compute loss")
+    _check(abs(n16 - n32) <= BF16_NORM_REL * n32, "the bf16-compute "
+           "gradient norm within 5 % of the float32-compute one")
+
+    state = O.init(params)
+    step = make_train_step(cfg, O.OptConfig(**TRAIN_OPT),
+                           num_micro=TRAIN_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        (params, state, st), t = _timed(torch, lambda: step(params, state,
+                                                            batch))
+        losses.append(float(st["loss"]))
+        times.append(t)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    s_step = sorted(times[1:])[len(times[1:]) // 2]
+    print(f"phase 7 (a): {TRAIN_STEPS} steps on a repeated batch, losses "
+          f"{[round(x, 4) for x in losses]}; {s_step:.3f} s per step "
+          f"(median of steps 2-{TRAIN_STEPS}; the first {times[0]:.3f} s) "
+          f"= {TRAIN_B * TRAIN_SEQ / s_step:.0f} tokens/s; peak device "
+          f"memory {peak:.3f} GiB [{card}]", flush=True)
+    _check(all(np.isfinite(losses)), "training losses finite")
+    _check(losses[-1] < losses[0], "the loss falls over the steps")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+
+    # (b) the ten smoke twins, card against the CPU twins' process
+    worst = 0.0
+    for name in ARCHS:
+        got = _train_twin(name, "cuda")
+        want, _ = twins.get("7", name)
+        for k, w in want.items():
+            rel = abs(got[k] - w) / abs(w)
+            _check(rel <= TRAIN_TWIN_REL, f"the {name} twin's {k} on the "
+                   f"card within {TRAIN_TWIN_REL} of the CPU's ({rel})")
+            worst = max(worst, rel)
+    t2 = time.perf_counter()
+    print(f"phase 7 (b): the ten twins, {TRAIN_TWIN_STEPS} steps each, card "
+          f"losses equal the CPU's within {TRAIN_TWIN_REL} relative (worst "
+          f"{worst:.3g}) in {t2 - t1:.1f} s [{card}]", flush=True)
+
+    # (c) the restart drill
+    report = _restart_drill(torch, card)
+    launches = _kernel_launches()
+    print(f"phase 7 (c): restart drill on the yi-6b twin: {report}; the "
+          f"training path's kernel launches {launches}; (a) {t1 - t0:.1f} "
+          f"s, (b) {t2 - t1:.1f} s, (c) {time.perf_counter() - t2:.1f} s "
+          f"[{card}]", flush=True)
+    _check(not any(launches.values()), "the training path launches no "
+           "kernel")
+    return launches
 
 
 def main() -> int:
@@ -3293,9 +3751,14 @@ def _smoke(torch, twins) -> int:
 
     # -- phase 5: serving Yi-6B, its launches counted ---------------------
     t0 = time.perf_counter()
-    cfg, params, launches = serving_phase(torch, card)
+    cfg, params, launches, served = serving_phase(torch, card)
     torch.cuda.empty_cache()
     print(f"serving path: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 5b: int8 KV pages and the merged path, launches counted ---
+    t0 = time.perf_counter()
+    int8_row = int8_phase(torch, cfg, params, served, card)
+    print(f"int8 path: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- phase 6: the continuous batcher ---------------------------------
     batcher_phase(torch, cfg, params, card)
@@ -3307,7 +3770,12 @@ def _smoke(torch, twins) -> int:
     moe_launches, moe_attn = families_phase(torch, card, twins)
     print(f"families path: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # -- phase 7: report -------------------------------------------------
+    # -- phase 7: training at full width, launches counted ---------------
+    t0 = time.perf_counter()
+    train_launches = training_phase(torch, card, twins)
+    print(f"training path: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- phase 8: report -------------------------------------------------
     rows.append(walk_row)
     launches["scan_walk"] = walk_launches
     for r in rows:
@@ -3320,6 +3788,7 @@ def _smoke(torch, twins) -> int:
             r["cluster_launches"] = c_launches[r["name"]]
             r["cache_launches"] = g_launches[r["name"]]
         r["moe_launches"] = moe_launches[r["name"]]
+        r["train_launches"] = train_launches[r["name"]]
         if r["name"] == "paged_attention":     # granite's decode shape
             e, ms, plain_ms, bound_ms, lib_ms = moe_attn
             r["moe_shape"] = {"B": MOE_B, "H": 24, "KVH": 8, "D": 64,
@@ -3327,6 +3796,9 @@ def _smoke(torch, twins) -> int:
                               "max_abs_err": e, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": bound_ms,
                               "library_ms": lib_ms}
+            r["merged_launches"] = int8_row["merged_launches"]
+    rows.append(dict(int8_row, moe_launches=moe_launches["int8_attention"],
+                     train_launches=train_launches["int8_attention"]))
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -11,8 +11,12 @@ table built elsewhere (for example by the JAX package, through
 that compare field by field with the reference's.
 
 ``params_from_numpy`` maps the reference's parameter tree (as numpy, same
-keys, per-layer tensors stacked on L) onto the port's storage dtypes;
-``cache_from_numpy``/``cache_to_numpy`` carry a ``PagedCache``, its
+keys, per-layer tensors stacked on L) onto the port's storage dtypes, or
+onto float32 training masters (``master_dtype``), and ``params_to_numpy``
+back; ``opt_state_from_numpy``/``opt_state_to_numpy`` carry the
+optimizer's ``OptState`` (float32 moments, int32 step);
+``cache_from_numpy``/``cache_to_numpy`` carry a ``PagedCache`` (int8
+pools and their float32 scales included), its
 per-shard page tables stacked on a leading DS dim as in the reference;
 ``state_cache_from_numpy``/``state_cache_to_numpy`` the ssm and hybrid
 families' state cache (float leaves keep their dtype, ``seq_lens`` int32).
@@ -32,6 +36,7 @@ from repro_torch.core.pfarm import PFarmTable
 from repro_torch.core.words import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.serving.kvcache import PagedCache
+from repro_torch.training.optimizer import OptState
 
 INT32_FIELDS = ("ext_map", "ext_count", "count")
 
@@ -116,20 +121,62 @@ def dense_table_to_numpy(table: DenseTable) -> dict:
     return _to_numpy(table, _DENSE)
 
 
-def params_from_numpy(params_np: Mapping, cfg, device="cuda") -> dict:
+def params_from_numpy(params_np: Mapping, cfg, device="cuda",
+                      master_dtype=None) -> dict:
     """The reference's parameter tree (numpy leaves) as the port's: the
     matrices the reference casts to ``cfg.dtype`` at every use are stored
     in it; norm scales, the router, the SSM's vectors and the LM head in
-    float32 (``transformer.leaf_dtype``).  An unknown leaf raises."""
+    float32 (``transformer.leaf_dtype``); every leaf in ``master_dtype``
+    when it is given (float32: the reference's training masters, bit for
+    bit).  An unknown leaf raises."""
     dev = resolve_device(device)
 
     def leaf(name, a):
         dt = T.leaf_dtype(cfg, name)
-        return torch.from_numpy(np.array(a, np.float32)).to(dev, dt)
+        return torch.from_numpy(np.array(a, np.float32)).to(
+            dev, master_dtype or dt)
 
     out = {k: leaf(k, v) for k, v in params_np.items() if k != "blocks"}
     out["blocks"] = {k: leaf(k, v) for k, v in params_np["blocks"].items()}
     return out
+
+
+def _tree_to_numpy(tree):
+    """Nested dicts of tensors as nested dicts of host numpy arrays in the
+    tensors' dtypes (bfloat16 widened to float32 exactly)."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def params_to_numpy(params: Mapping) -> dict:
+    """A parameter tree as the reference's numpy tree (same keys)."""
+    return _tree_to_numpy(params)
+
+
+def _tree_from_numpy(tree, dev):
+    """Nested dicts of arrays as nested dicts of float32 tensors on dev."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_from_numpy(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, np.float32)).to(dev)
+
+
+def opt_state_from_numpy(state, device="cuda") -> OptState:
+    """The reference's ``OptState`` (numpy or array leaves: the moments
+    ``m`` and ``v`` as parameter trees, a 0-d ``step``) as the port's:
+    float32 moments, an int32 step."""
+    dev = resolve_device(device)
+    return OptState(m=_tree_from_numpy(state.m, dev),
+                    v=_tree_from_numpy(state.v, dev),
+                    step=torch.tensor(int(np.asarray(state.step)),
+                                      dtype=torch.int32, device=dev))
+
+
+def opt_state_to_numpy(state: OptState) -> dict:
+    """An ``OptState`` as numpy: {"m": tree, "v": tree, "step": int32 0-d}."""
+    return {"m": _tree_to_numpy(state.m), "v": _tree_to_numpy(state.v),
+            "step": np.asarray(int(state.step), np.int32)}
 
 
 def cache_from_numpy(fields: Mapping, device="cuda") -> PagedCache:
@@ -144,6 +191,11 @@ def cache_from_numpy(fields: Mapping, device="cuda") -> PagedCache:
     for name in PagedCache._fields:
         if name == "table":
             continue
+        if name in ("kscale", "vscale"):     # float32, or None (not int8)
+            a = fields.get(name)
+            out[name] = (None if a is None else torch.from_numpy(
+                np.array(a, np.float32)).to(dev))
+            continue
         a = np.asarray(fields[name])
         if name in ("kpool", "vpool"):
             out[name] = torch.from_numpy(np.array(a, np.float32)).to(
@@ -155,15 +207,20 @@ def cache_from_numpy(fields: Mapping, device="cuda") -> PagedCache:
 
 
 def cache_to_numpy(cache: PagedCache) -> dict:
-    """A paged cache as host numpy arrays in the reference's dtypes (pools
-    as float32 values); ``table`` holds each table field stacked on DS."""
+    """A paged cache as host numpy arrays in the reference's dtypes (float
+    pools as float32 values, int8 pools as int8, their scales float32 or
+    None); ``table`` holds each table field stacked on DS."""
     tabs = [table_to_numpy(t) for t in cache.table]
     out = {"table": {k: np.stack([t[k] for t in tabs]) for k in tabs[0]}}
     for name in PagedCache._fields:
         if name == "table":
             continue
-        t = getattr(cache, name).detach().cpu()
-        if name in ("kpool", "vpool"):
+        t = getattr(cache, name)
+        if t is None:                        # kscale / vscale of a float cache
+            out[name] = None
+            continue
+        t = t.detach().cpu()
+        if name in ("kpool", "vpool") and t.dtype != torch.int8:
             out[name] = t.to(torch.float32).numpy().copy()
         else:
             a = t.numpy().copy()

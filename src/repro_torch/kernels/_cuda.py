@@ -108,7 +108,7 @@ def segment_probe_lib() -> ctypes.CDLL:
 def paged_attn_lib() -> ctypes.CDLL:
     """The paged-attention library, built and loaded once per process."""
     return _library("paged_attn.cu", "paged_attn_launch",
-                    [ctypes.c_int] + [ctypes.c_void_p] * 7
+                    [ctypes.c_int] + [ctypes.c_void_p] * 9
                     + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -248,6 +248,8 @@ def launch_segment_probe(mode: int, rows, indicators, fps, prio, pairs,
 
 
 PAGED_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the int8 mode's codes, by q's dtype: int8 pools with float32 scales
+PAGED_ATTN_INT8 = {torch.float32: 2, torch.bfloat16: 3}
 MAX_SPLITS = 1024     # the merge kernel's limit (csrc/paged_attn.cu)
 
 
@@ -281,7 +283,8 @@ def sm_count(index: int) -> int:
 @functools.lru_cache(maxsize=None)
 def resident_blocks(index: int, dtype: int, D: int) -> int:
     """Split-kernel blocks that one SM of CUDA device ``index`` holds at
-    once for operands of ``dtype`` (a ``PAGED_ATTN_DTYPES`` code) and head
+    once for operands of ``dtype`` (a ``PAGED_ATTN_DTYPES`` or
+    ``PAGED_ATTN_INT8`` code) and head
     dim ``D``: the runtime's occupancy of the instantiation the launch
     picks, with its registers and shared memory (asked once per process;
     a host call, no device sync)."""
@@ -298,13 +301,14 @@ def resident_blocks(index: int, dtype: int, D: int) -> int:
 
 
 def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float,
-                      splits: int = 0):
+                      splits: int = 0, kscale=None, vscale=None):
     """Check the operands and launch the paged-attention kernels (the split
     kernel and the merge) on the current stream; returns the (B, H, D)
-    output in q's dtype.  ``splits`` 0 lets the host choose
-    (``paged_attn_splits``); tests pass others.  Reads nothing back from
-    the device.  Raises on any operand it does not take or a failed
-    launch."""
+    output in q's dtype.  Pools are of q's dtype, or int8 with their
+    float32 scales ``kscale``/``vscale`` (NP, KVH, PS, 1) (the int8 mode).
+    ``splits`` 0 lets the host choose (``paged_attn_splits``); tests pass
+    others.  Reads nothing back from the device.  Raises on any operand it
+    does not take or a failed launch."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -321,9 +325,12 @@ def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float,
                          f"{tuple(kpool.shape)}")
     if D % 8 or D > 256:
         raise ValueError(f"head dim must be a multiple of 8 up to 256, got {D}")
-    for name, t in (("q", q), ("kpool", kpool), ("vpool", vpool)):
-        if t.device != dev or t.dtype != q.dtype:
-            raise ValueError(f"{name} must be {q.dtype} on {dev}, got "
+    quant = kscale is not None or vscale is not None
+    pool_dtype = torch.int8 if quant else q.dtype
+    for name, t, dt in (("q", q, q.dtype), ("kpool", kpool, pool_dtype),
+                        ("vpool", vpool, pool_dtype)):
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(f"{name} must be {dt} on {dev}, got "
                              f"{t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -332,6 +339,15 @@ def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float,
     if tuple(vpool.shape) != tuple(kpool.shape):
         raise ValueError(f"vpool {tuple(vpool.shape)} differs from kpool "
                          f"{tuple(kpool.shape)}")
+    if quant:
+        for name, t in (("kscale", kscale), ("vscale", vscale)):
+            if (t is None or t.device != dev or t.dtype != torch.float32
+                    or tuple(t.shape) != (NP, KVH, PS, 1)
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"int8 pools take contiguous float32 {name} of shape "
+                    f"{(NP, KVH, PS, 1)} on {dev}, got "
+                    f"{None if t is None else (t.dtype, tuple(t.shape))}")
     _need(page_table, "page_table", (B, MAXP), dev)
     _need(seq_lens, "seq_lens", (B,), dev)
     if not 0 <= splits <= MAX_SPLITS:
@@ -343,20 +359,21 @@ def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    code = (PAGED_ATTN_INT8 if quant else PAGED_ATTN_DTYPES)[q.dtype]
     if not splits:
-        splits = paged_attn_splits(
-            B * KVH, MAXP, sm_count(dev.index),
-            resident_blocks(dev.index, PAGED_ATTN_DTYPES[q.dtype], D))
+        splits = paged_attn_splits(B * KVH, MAXP, sm_count(dev.index),
+                                   resident_blocks(dev.index, code, D))
     workspace = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
                             device=dev)
     lib = paged_attn_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paged_attn_launch(
-            PAGED_ATTN_DTYPES[q.dtype], q.data_ptr(), kpool.data_ptr(),
-            vpool.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
-            out.data_ptr(), workspace.data_ptr(), B, H, KVH, D, NP, PS, MAXP,
-            splits, float(scale), stream)
+            code, q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+            kscale.data_ptr() if quant else None,
+            vscale.data_ptr() if quant else None, page_table.data_ptr(),
+            seq_lens.data_ptr(), out.data_ptr(), workspace.data_ptr(), B, H,
+            KVH, D, NP, PS, MAXP, splits, float(scale), stream)
     if err:
         raise RuntimeError(f"paged_attn_launch failed: cudaError {err}")
     return out

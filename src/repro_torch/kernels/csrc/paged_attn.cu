@@ -63,11 +63,20 @@
 // - float32: the same grid, partials and merge, with CUDA-core FMAs (TF32
 //   tensor cores would keep ~3 digits): one warp per query head, 16-token
 //   tiles staged through registers one tile ahead.
+// - int8 pools (kv_dtype "int8", q and out float32 or bfloat16): the
+//   float32 kernel's loop, each pool row read as int8 (8 bytes per lane
+//   load) with its float32 scale and dequantized while it is staged into
+//   the shared tile, float(q8) * scale rounded to q's type as the plain
+//   version's (q8.float() * scale).to(dtype), then the same float32
+//   softmax and merge.  Bound: bytes, 2 * D + 8 per live token per kv
+//   head (264 at D 128, against 512 in bf16): the pools are never
+//   dequantized in device memory.
 
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace {
 
@@ -477,7 +486,7 @@ split_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores, one warp per query head
+// float32 pools, and int8 pools: CUDA cores, one warp per query head
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Heads = 8;
@@ -492,17 +501,55 @@ __device__ __forceinline__ float dot4(uint4 k, const float* q) {
   return fmaf(__uint_as_float(k.w), q[3], s);
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
+// x rounded to T and widened back: a dequantized element in q's type
+template <typename T>
+__device__ __forceinline__ float round_as(float x);
+template <>
+__device__ __forceinline__ float round_as<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_as<bf16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));  // nearest even, as torch
+}
+
+// eight int8 values times their row's scale, each rounded to T: the plain
+// version's (q8.float() * scale).to(T)
+template <typename T>
+__device__ __forceinline__ void dequant8(uint2 w, float s, float* out) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&w);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = round_as<T>(static_cast<float>(b[i]) * s);
+}
+
+// q and out of type T.  kQuant false: float pools (T is float), rows read
+// 16 bytes (4 values) at a time.  kQuant true: int8 pools with a float32
+// scale per (token, head) row, rows read 8 bytes (8 values) at a time and
+// dequantized into the shared tile as they are staged, so each live
+// token's K and V bytes and two scales are read once and nothing is
+// written back.
+template <typename T, bool kQuant>
 __global__ void __launch_bounds__(kF32Threads)
-split_kernel_f32(const float* __restrict__ q, const float* __restrict__ kpool,
-                 const float* __restrict__ vpool,
-                 const int32_t* __restrict__ page_table,
-                 const int32_t* __restrict__ seq_lens,
-                 float* __restrict__ ws_acc, float2* __restrict__ ws_ml,
-                 int H, int KVH, int D, int NP, int PS, int MAXP,
-                 int pages_per_split, int splits, float scale) {
+split_kernel_cc(const T* __restrict__ q, const void* __restrict__ kpool_,
+                const void* __restrict__ vpool_,
+                const float* __restrict__ kscale,
+                const float* __restrict__ vscale,
+                const int32_t* __restrict__ page_table,
+                const int32_t* __restrict__ seq_lens,
+                float* __restrict__ ws_acc, float2* __restrict__ ws_ml,
+                int H, int KVH, int D, int NP, int PS, int MAXP,
+                int pages_per_split, int splits, float scale) {
+  using Pool = typename std::conditional<kQuant, int8_t, float>::type;
+  using Chunk = typename std::conditional<kQuant, uint2, uint4>::type;
+  constexpr int kPer = sizeof(Chunk) / sizeof(Pool);  // values per chunk
   constexpr int kDimsPerLane = kMaxD / 32;
-  // uint4 loads per thread per tensor per tile, at most 4
-  constexpr int kLoads = kF32Tile * kMaxD / 4 / kF32Threads;
+  // chunk loads per thread per tensor per tile: at most 4 (float), 2 (int8)
+  constexpr int kLoads = kF32Tile * kMaxD / kPer / kF32Threads;
+  const Pool* kpool = static_cast<const Pool*>(kpool_);
+  const Pool* vpool = static_cast<const Pool*>(vpool_);
   __shared__ __align__(16) float ks[kF32Tile * (kMaxD + kPad)];
   __shared__ __align__(16) float vs[kF32Tile * (kMaxD + kPad)];
   __shared__ __align__(16) float qs[kF32Heads * kMaxD];
@@ -518,13 +565,15 @@ split_kernel_f32(const float* __restrict__ q, const float* __restrict__ kpool,
   const int g0 = blockIdx.z * kF32Heads;
   const bool active = g0 + warp < G;  // uniform across the warp
   const size_t row0 = static_cast<size_t>(b) * H + h * G + g0;
-  const int vpr = D / 4;               // uint4 per row
+  const int vpr = D / 4;               // uint4 of floats per shared row
+  const int cpr = D / kPer;            // chunks per pool row
   const int ws = (D + kPad) / 4;       // padded row stride, in uint4
   const int32_t* pt_row = page_table + static_cast<size_t>(b) * MAXP;
 
   for (int i = threadIdx.x; i < kF32Heads * D; i += kF32Threads) {
     const int w = i / D;
-    qs[w * kMaxD + i % D] = g0 + w < G ? q[(row0 + w) * D + i % D] : 0.f;
+    qs[w * kMaxD + i % D] =
+        g0 + w < G ? to_float(q[(row0 + w) * D + i % D]) : 0.f;
   }
   int len = seq_lens[b];
   len = len < 0 ? 0 : (len > MAXP * PS ? MAXP * PS : len);
@@ -532,7 +581,8 @@ split_kernel_f32(const float* __restrict__ q, const float* __restrict__ kpool,
   split_tokens(split, pages_per_split, PS, len, &tb, &te);
 
   // -- registers one tile ahead ---------------------------------------------
-  uint4 kr[kLoads], vr[kLoads];
+  Chunk kr[kLoads], vr[kLoads];
+  float ksr[kLoads], vsr[kLoads];  // the rows' scales (int8 pools)
   unsigned loaded = 0;  // bit k: kr[k]/vr[k] hold a live row's chunk
   auto issue = [&](int t0) {
     const int n = min(kF32Tile, te - t0);
@@ -540,16 +590,20 @@ split_kernel_f32(const float* __restrict__ q, const float* __restrict__ kpool,
 #pragma unroll
     for (int k = 0; k < kLoads; ++k) {
       const int i = threadIdx.x + k * kF32Threads;
-      const int r = i / vpr;
+      const int r = i / cpr;
       if (r < n) {
         const int j = t0 + r;
         const int pt = __ldg(pt_row + j / PS);
         if (pt >= 0 && pt < NP) {
-          const size_t row = ((static_cast<size_t>(pt) * KVH + h) * PS +
-                              j % PS) * D;
-          const int c = i - r * vpr;
-          kr[k] = __ldg(reinterpret_cast<const uint4*>(kpool + row) + c);
-          vr[k] = __ldg(reinterpret_cast<const uint4*>(vpool + row) + c);
+          const size_t row =
+              (static_cast<size_t>(pt) * KVH + h) * PS + j % PS;
+          const int c = i - r * cpr;
+          kr[k] = __ldg(reinterpret_cast<const Chunk*>(kpool + row * D) + c);
+          vr[k] = __ldg(reinterpret_cast<const Chunk*>(vpool + row * D) + c);
+          if constexpr (kQuant) {
+            ksr[k] = __ldg(kscale + row);
+            vsr[k] = __ldg(vscale + row);
+          }
           loaded |= 1u << k;
         }
       }
@@ -574,9 +628,15 @@ split_kernel_f32(const float* __restrict__ q, const float* __restrict__ kpool,
     for (int k = 0; k < kLoads; ++k) {
       if (loaded >> k & 1u) {
         const int i = threadIdx.x + k * kF32Threads;
-        const int r = i / vpr;
-        k4[r * ws + (i - r * vpr)] = kr[k];
-        v4[r * ws + (i - r * vpr)] = vr[k];
+        const int r = i / cpr;
+        const int c = i - r * cpr;
+        if constexpr (kQuant) {
+          dequant8<T>(kr[k], ksr[k], ks + r * ws * 4 + c * kPer);
+          dequant8<T>(vr[k], vsr[k], vs + r * ws * 4 + c * kPer);
+        } else {
+          k4[r * ws + c] = kr[k];
+          v4[r * ws + c] = vr[k];
+        }
       }
     }
     if (threadIdx.x < kF32Tile) {
@@ -629,6 +689,22 @@ split_kernel_f32(const float* __restrict__ q, const float* __restrict__ kpool,
     }
     if (lane == 0) ws_ml[o] = make_float2(m, l);
   }
+}
+
+template <typename T, bool kQuant>
+cudaError_t launch_cc(const void* q, const void* kpool, const void* vpool,
+                      const float* kscale, const float* vscale,
+                      const int32_t* pt, const int32_t* lens, float* ws_acc,
+                      float2* ws_ml, int B, int H, int KVH, int D, int NP,
+                      int PS, int MAXP, int pps, int splits, float scale,
+                      cudaStream_t stream) {
+  const int G = H / KVH;
+  split_kernel_cc<T, kQuant><<<dim3(B * KVH, splits,
+                                    (G + kF32Heads - 1) / kF32Heads),
+                               kF32Threads, 0, stream>>>(
+      static_cast<const T*>(q), kpool, vpool, kscale, vscale, pt, lens,
+      ws_acc, ws_ml, H, KVH, D, NP, PS, MAXP, pps, splits, scale);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -768,12 +844,20 @@ extern "C" int paged_attn_resident_blocks(int dtype, int D, int* blocks) {
   switch (dtype) {
     case 0:
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, split_kernel_f32, kF32Threads, 0);
+          blocks, split_kernel_cc<float, false>, kF32Threads, 0);
       break;
     case 1:
       err = Dp <= 64    ? resident_bf16<8>(D, blocks)
             : Dp <= 128 ? resident_bf16<16>(D, blocks)
                         : resident_bf16<32>(D, blocks);
+      break;
+    case 2:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, split_kernel_cc<float, true>, kF32Threads, 0);
+      break;
+    case 3:
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, split_kernel_cc<bf16, true>, kF32Threads, 0);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -781,13 +865,16 @@ extern "C" int paged_attn_resident_blocks(int dtype, int D, int* blocks) {
   return static_cast<int>(err);
 }
 
-// dtype: 0 float32, 1 bfloat16 (q, both pools and out).  splits: 1 to
-// kMaxSplits.  workspace: float32 scratch of B * H * splits * (D + 2)
-// values (the splits' acc, then their (m, l) pairs).  Launches the split
-// kernel and the merge on `stream`; returns the cudaError_t of the
-// launches (0 on success).
+// dtype: 0 float32, 1 bfloat16 (q, both pools and out); 2 float32 q and
+// out over int8 pools, 3 bfloat16 q and out over int8 pools, each int8
+// pool with its float32 scales (kscale, vscale: one per pool row, null
+// for dtypes 0 and 1).  splits: 1 to kMaxSplits.  workspace: float32
+// scratch of B * H * splits * (D + 2) values (the splits' acc, then their
+// (m, l) pairs).  Launches the split kernel and the merge on `stream`;
+// returns the cudaError_t of the launches (0 on success).
 extern "C" int paged_attn_launch(int dtype, const void* q, const void* kpool,
-                                 const void* vpool, const void* page_table,
+                                 const void* vpool, const void* kscale,
+                                 const void* vscale, const void* page_table,
                                  const void* seq_lens, void* out,
                                  void* workspace, int B, int H, int KVH, int D,
                                  int NP, int PS, int MAXP, int splits,
@@ -795,7 +882,8 @@ extern "C" int paged_attn_launch(int dtype, const void* q, const void* kpool,
   if (B <= 0) return 0;
   if (KVH <= 0 || H % KVH || D <= 0 || D > kMaxD || D % 8 || PS <= 0 ||
       MAXP <= 0 || NP <= 0 || splits <= 0 || splits > kMaxSplits ||
-      static_cast<long long>(NP) * KVH * PS > 0x7fffffffLL)  // int pool rows
+      static_cast<long long>(NP) * KVH * PS > 0x7fffffffLL ||  // int rows
+      (dtype >= 2) != (kscale != nullptr && vscale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int pps = (MAXP + splits - 1) / splits;  // pages per split
@@ -805,19 +893,30 @@ extern "C" int paged_attn_launch(int dtype, const void* q, const void* kpool,
       ws_acc + static_cast<size_t>(BH) * splits * D);
   const int32_t* pt = static_cast<const int32_t*>(page_table);
   const int32_t* lens = static_cast<const int32_t*>(seq_lens);
-  const int G = H / KVH;
+  const float* kss = static_cast<const float*>(kscale);
+  const float* vss = static_cast<const float*>(vscale);
   cudaError_t err;
   switch (dtype) {
     case 0:
-      split_kernel_f32<<<dim3(B * KVH, splits,
-                              (G + kF32Heads - 1) / kF32Heads),
-                         kF32Threads, 0, s>>>(
-          static_cast<const float*>(q), static_cast<const float*>(kpool),
-          static_cast<const float*>(vpool), pt, lens, ws_acc, ws_ml, H, KVH,
-          D, NP, PS, MAXP, pps, splits, scale);
-      err = cudaGetLastError();
+    case 2:
+      err = dtype == 0
+                ? launch_cc<float, false>(q, kpool, vpool, nullptr, nullptr,
+                                          pt, lens, ws_acc, ws_ml, B, H, KVH,
+                                          D, NP, PS, MAXP, pps, splits, scale,
+                                          s)
+                : launch_cc<float, true>(q, kpool, vpool, kss, vss, pt, lens,
+                                         ws_acc, ws_ml, B, H, KVH, D, NP, PS,
+                                         MAXP, pps, splits, scale, s);
       if (err != cudaSuccess) return static_cast<int>(err);
       err = launch_merge<float>(ws_acc, ws_ml, out, BH, D, splits, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      break;
+    case 3:
+      err = launch_cc<bf16, true>(q, kpool, vpool, kss, vss, pt, lens,
+                                  ws_acc, ws_ml, B, H, KVH, D, NP, PS, MAXP,
+                                  pps, splits, scale, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = launch_merge<bf16>(ws_acc, ws_ml, out, BH, D, splits, s);
       if (err != cudaSuccess) return static_cast<int>(err);
       break;
     case 1: {

@@ -147,10 +147,14 @@ def probe_lookup(cfg: ContinuityConfig, table: ContinuityTable, keys,
 
 
 def paged_attention(q, kpool, vpool, page_table, seq_lens, *,
-                    scale: float | None = None, use_kernel: bool = True):
+                    scale: float | None = None, kscale=None, vscale=None,
+                    use_kernel: bool = True):
     """Paged GQA decode attention: q (B, H, D) over pools (NP, KVH, PS, D)
-    through page_table (B, MAXP) with live lengths seq_lens (B,).  The
-    reference pads the query-head group to 8 for the TPU's tiles; the
-    CUDA kernel takes any group size, so nothing is padded here."""
+    through page_table (B, MAXP) with live lengths seq_lens (B,); int8
+    pools come with their float32 scales ``kscale``/``vscale`` (NP, KVH,
+    PS, 1).  The reference pads the query-head group to 8 for the TPU's
+    tiles; the CUDA kernel takes any group size, so nothing is padded
+    here."""
     fn = _paged_attn if use_kernel else paged_attention_ref
-    return fn(q, kpool, vpool, page_table, seq_lens, scale=scale)
+    return fn(q, kpool, vpool, page_table, seq_lens, scale=scale,
+              kscale=kscale, vscale=vscale)

@@ -12,7 +12,10 @@ the page table and the output.  Design: split-KV over pages (one block per
 split order by a second kernel of the same call); bf16 tiles staged by TMA
 bulk copies and multiplied on the tensor cores (mma.sync), float32 on CUDA
 cores; see the source.  The host picks the split count
-(``_cuda.paged_attn_splits``) without reading the device.
+(``_cuda.paged_attn_splits``) without reading the device.  The int8 mode
+(``kv_dtype="int8"``: int8 pools with float32 per-(token, head) scales)
+dequantizes each row as it is staged, in the float32 kernel's loop; its
+bound is 2 * D + 8 bytes per live token per kv head.
 
 On a CPU tensor the wrapper runs the plain version
 (``paged_attn_ref.paged_attention_ref``); on a CUDA tensor it launches
@@ -25,27 +28,32 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels.paged_attn_ref import paged_attention_ref
 
 
-def paged_attention(q, kpool, vpool, page_table, seq_lens, scale=None):
+def paged_attention(q, kpool, vpool, page_table, seq_lens, scale=None,
+                    kscale=None, vscale=None):
     """Paged GQA decode attention.
 
     Args:
       q:          (B, H, D) float32 or bfloat16
-      kpool:      (NP, KVH, PS, D) physical pages of q's dtype
+      kpool:      (NP, KVH, PS, D) physical pages of q's dtype, or int8
       vpool:      (NP, KVH, PS, D)
       page_table: (B, MAXP) int32 physical page ids (-1 = absent)
       seq_lens:   (B,) int32 live lengths
+      kscale, vscale: (NP, KVH, PS, 1) float32 scales of int8 pools
     Returns: (B, H, D) in q's dtype.
     """
     if q.device.type == "cpu":
         return paged_attention_ref(q, kpool, vpool, page_table, seq_lens,
-                                   scale=scale)
+                                   scale=scale, kscale=kscale, vscale=vscale)
     if scale is None:
         scale = float(1.0 / (q.shape[-1] ** 0.5))
     out = _cuda.launch_paged_attn(q, kpool, vpool, page_table, seq_lens,
-                                  scale)
+                                  scale, kscale=kscale, vscale=vscale)
     if q.shape[0]:                # an empty batch launches nothing
         paged_attention.launches += 1
+        if kscale is not None:
+            paged_attention.int8_launches += 1
     return out
 
 
-paged_attention.launches = 0   # kernel launches since the last reset
+paged_attention.launches = 0        # kernel launches since the last reset
+paged_attention.int8_launches = 0   # of them, launches of the int8 mode

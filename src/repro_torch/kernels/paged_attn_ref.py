@@ -3,7 +3,12 @@
 Port of ``repro.kernels.paged_attn_ref``; the CPU path of
 ``paged_attn.paged_attention`` and the card's yardstick for its kernel.
 It gathers every page of the table, so it moves (B, MAXP, KVH, PS, D)
-copies that the kernel never makes.
+copies that the kernel never makes.  With int8 pools and their float32
+per-(token, head) scales, the gathered pages are dequantized to q's dtype
+as the reference's ``_paged_layer_step`` does (multiplied in float32,
+rounded once to the model's dtype) before the same softmax.  The int8
+rule itself, ``quant_store`` and ``dequant``, lives here once: the KV
+cache, the merged decode path and this yardstick all use it.
 """
 
 from __future__ import annotations
@@ -13,7 +18,26 @@ import torch
 F32 = torch.float32
 
 
-def paged_attention_ref(q, kpool, vpool, page_table, seq_lens, scale=None):
+# -- int8 quantization (beyond-paper serving optimization) -------------------
+
+def quant_store(x: torch.Tensor):
+    """Symmetric per-(token, head) int8 quant, the reference's float32
+    arithmetic: x (..., D) -> (int8 (..., D), float32 scale (..., 1));
+    scale = max(amax, 1e-8) / 127, round half to even, clip to +-127."""
+    xf = x.to(F32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """int8 values times their float32 scales, rounded once to dtype."""
+    return (q.to(F32) * scale).to(dtype)
+
+
+def paged_attention_ref(q, kpool, vpool, page_table, seq_lens, scale=None,
+                        kscale=None, vscale=None):
     """Reference paged decode attention.
 
     Args:
@@ -22,6 +46,8 @@ def paged_attention_ref(q, kpool, vpool, page_table, seq_lens, scale=None):
       vpool:      (NP, KVH, PS, D)
       page_table: (B, MAXP) int32 — physical page per logical page (-1 = absent)
       seq_lens:   (B,) int32 — tokens currently in each sequence's cache
+      kscale, vscale: (NP, KVH, PS, 1) float32 scales of int8 pools, or
+                  None for pools in q's dtype
     Returns:
       (B, H, D) attention output, same dtype as q.
     """
@@ -35,6 +61,9 @@ def paged_attention_ref(q, kpool, vpool, page_table, seq_lens, scale=None):
     pt = page_table.clamp(min=0).long()
     k = kpool[pt]                                  # (B, MAXP, KVH, PS, D)
     v = vpool[pt]
+    if kscale is not None:          # int8 pages: dequantize to q's dtype
+        k = dequant(k, kscale[pt], q.dtype)
+        v = dequant(v, vscale[pt], q.dtype)
     k = k.movedim(2, 1).reshape(B, KVH, MAXP * PS, D)
     v = v.movedim(2, 1).reshape(B, KVH, MAXP * PS, D)
     qg = q.reshape(B, KVH, G, D).to(F32)

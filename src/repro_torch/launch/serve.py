@@ -4,7 +4,7 @@
 Port of ``repro.launch.serve``, on the card by default:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
-      --batch 4 --prompt-len 64 --gen 32 [--device cpu]
+      --batch 4 --prompt-len 64 --gen 32 [--kv-dtype int8] [--device cpu]
 
 Prompts come from ``--seed`` (numpy), weights from a ``torch.Generator``
 seeded the same.  Full-attention families (dense, moe, audio, vlm)
@@ -151,6 +151,7 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--shards", type=int, default=2)
+    ap.add_argument("--kv-dtype", default=None, choices=[None, "int8"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -169,7 +170,7 @@ def main(argv=None):
     else:
         geom = make_geometry(cfg, args.batch, args.prompt_len, args.gen,
                              page_size=args.page_size, shards=args.shards,
-                             device=dev)
+                             kv_dtype=args.kv_dtype, device=dev)
         cache = KC.create_cache(geom)
 
     t0 = time.perf_counter()

@@ -12,13 +12,21 @@ no-ops and are dropped (``param_logical_axes`` waits for the multi-device
 layer).  Matrices that the reference casts to the model's dtype at every
 use (``CAST_LEAVES``) are stored in that dtype, which gives the values
 the reference computes; norm scales, the router, the SSM's decay and
-skip vectors and the LM head are read in float32 and stay so.
+skip vectors and the LM head are read in float32 and stay so.  Training
+keeps float32 masters of every leaf, as the reference does
+(``init_params`` / ``convert.params_from_numpy`` with ``master_dtype``):
+the forward casts each leaf where it is used, so gradients reach the
+float32 leaves.  ``loss_fn`` is the causal-LM cross entropy with the
+z-loss and the MoE's balance term; ``cfg.remat`` recomputes each layer
+in the backward ("full") or all but its matrix products ("dots").
 
 Full-attention families decode against the hash-indexed paged KV pool
 (``serving/kvcache``): every step translates (sequence, logical page)
 through the continuity page table, writes the new token's k/v into its
-open page, and attends with the paged-attention kernel directly on the
-pool through the page table, with no gather.  The pools are updated in
+open page (int8 pools: quantized, with its scales), and attends with the
+paged-attention kernel directly on the pool through the page table, with
+no gather (``geom.merged_attn``: the reference's legacy path, pages
+gathered and merged before a plain attention).  The pools are updated in
 place.  SSM and hybrid decode carry a state cache instead
 (``kvcache.create_state_cache``: recurrent state, conv windows, hybrid's
 ring buffers and global linear caches), also updated in place.
@@ -81,20 +89,25 @@ def _require_paged(cfg: ModelConfig) -> None:
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                master_dtype=None) -> dict:
     """Random parameters on ``gen``'s device, drawn from ``gen``.  The
     distributions are the reference's (normal * 0.02, unit norm scales,
     Mamba-2's decay and dt inits); the values differ from JAX's PRNG
     (``convert.params_from_numpy`` carries the reference's across).  Each
-    layer's slice is drawn in float32 and stored in its dtype, bounding
-    the transient."""
+    layer's slice is drawn in float32 and stored in its dtype
+    (``leaf_dtype``; every leaf in ``master_dtype`` when it is given, the
+    training masters), bounding the transient."""
     E, Lh, V = cfg.d_model, cfg.n_layers, cfg.padded_vocab
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dev = gen.device
     sc = 0.02
 
+    def dtype_of(name):
+        return master_dtype or leaf_dtype(cfg, name)
+
     def normal(name, shape, scale=sc):
-        dtype = leaf_dtype(cfg, name)
+        dtype = dtype_of(name)
         if len(shape) < 3:                  # not stacked per layer
             return (torch.randn(shape, generator=gen, device=dev, dtype=F32)
                     * scale).to(dtype)
@@ -119,7 +132,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
             blocks["wo"] = normal("wo", (Lh, H * D, E))
         if cfg.qkv_bias:
             for name, n in (("bq", H * D), ("bk", KVH * D), ("bv", KVH * D)):
-                blocks[name] = const((Lh, n), 0.0, _dtype(cfg))
+                blocks[name] = const((Lh, n), 0.0, dtype_of(name))
     if cfg.moe is not None:
         m = cfg.moe
         blocks["router"] = normal("router", (Lh, E, m.num_experts))
@@ -140,7 +153,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
             if k == "out_proj" and cfg.family == "hybrid":
                 continue               # the fused projection replaces it
             blocks[f"ssm_{k}"] = torch.stack([lp[k] for lp in layers]).to(
-                leaf_dtype(cfg, f"ssm_{k}"))
+                dtype_of(f"ssm_{k}"))
         del layers
         if cfg.family == "hybrid":
             d_inner = S.ssm_dims(cfg)[0]
@@ -291,13 +304,50 @@ def final_norm(cfg: ModelConfig, params: dict, x):
     return L.layernorm(x, params["final_scale"], params["final_bias"])
 
 
+# matrix products without batch dimensions: what "dots" keeps (the
+# counterpart of dots_with_no_batch_dims_saveable); attention's batched
+# products are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable():
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` (one layer) under ``cfg.remat``, as the reference's
+    ``jax.checkpoint`` policies: "none" keeps every activation for the
+    backward, "full" keeps the layer's input alone and recomputes the
+    layer (``nothing_saveable``), "dots" keeps the outputs of its matrix
+    products and recomputes the rest.  Without autograd (serving, checks)
+    the layer runs as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils.checkpoint import checkpoint
+    if cfg.remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if cfg.remat == "dots":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=_dots_saveable)
+    raise ValueError(f"{cfg.name}: unknown remat {cfg.remat!r}")
+
+
 def forward(cfg: ModelConfig, params: dict, inputs):
     """Token (B, S) / embedding (B, S, E) inputs -> (hidden (B,S,E), moe
-    aux scalar).  Each layer runs with its segment's static window."""
+    aux scalar).  Each layer runs with its segment's static window, under
+    ``cfg.remat``."""
     x = embed(cfg, params, inputs)
     aux = torch.zeros((), dtype=F32, device=x.device)
     for layer, window in enumerate(layer_windows(cfg)):
-        x, da = _block_fwd(cfg, x, layer_params(params, layer), window)
+        def block(x, p, _w=window):
+            return _block_fwd(cfg, x, p, _w)
+        x, da = _remat(cfg, block)(x, layer_params(params, layer))
         aux = aux + da
     return final_norm(cfg, params, x), aux
 
@@ -309,6 +359,21 @@ def logits_fn(cfg: ModelConfig, params: dict, x) -> torch.Tensor:
         live = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
         logits = torch.where(live, logits, -1e30)
     return logits
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Causal-LM cross entropy (labels pre-shifted by the data pipeline)
+    over the masked padded vocabulary, plus the z-loss 1e-4 * mean(logz^2)
+    and, for MoE, 1e-2 * the balance term."""
+    x, aux = forward(cfg, params, batch["inputs"])
+    logits = logits_fn(cfg, params, x)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    ce = torch.mean(logz - gold)
+    zloss = 1e-4 * torch.mean(torch.square(logz))
+    moe_w = 1e-2 if cfg.moe is not None else 0.0
+    return ce + zloss + moe_w * aux
 
 
 # ---------------------------------------------------------------------------
@@ -344,10 +409,31 @@ def _ffn_step(cfg, p, x):
     return x + ffn(cfg, p, h2[:, None])[0][:, 0]
 
 
-def _paged_layer_step(cfg, geom, p, x, kpool, vpool, page_table, cache):
+def _merged_attention(geom, q, kpool, vpool, kscale, vscale, page_table,
+                      lens, dtype):
+    """The reference's legacy decode path (``geom.merged_attn``): every page
+    of the table gathered (an unmapped one as page 0, masked by the
+    length), dequantized to ``dtype`` when int8, (MAXP, PS) merged into one
+    token range, and plain decode attention over it.  No kernel."""
+    B = q.shape[0]
+    pt = page_table.clamp(min=0).long()
+    kg, vg = kpool[pt], vpool[pt]                # (B, MAXP, KVH, PS, D)
+    if kscale is not None:
+        kg = KC.dequant(kg, kscale[pt], dtype)
+        vg = KC.dequant(vg, vscale[pt], dtype)
+    T_ = geom.max_pages * geom.page_size
+    kf = kg.movedim(3, 2).reshape(B, T_, geom.kv_heads, geom.head_dim)
+    vf = vg.movedim(3, 2).reshape(B, T_, geom.kv_heads, geom.head_dim)
+    return L.decode_attention(q, kf, vf, lens)
+
+
+def _paged_layer_step(cfg, geom, p, x, kpool, vpool, page_table, cache,
+                      kscale=None, vscale=None):
     """One decoder layer of paged decode.  kpool/vpool: this layer's pool
-    (DS, NPl, KVH, PS, D), written in place at each sequence's open page;
-    page_table: (B, MAXP) ids into the pool viewed as (DS*NPl, ...)."""
+    (DS, NPl, KVH, PS, D), written in place at each sequence's open page
+    (int8 pools: the token's ``quant_store`` values, its scales into
+    kscale/vscale (DS, NPl, KVH, PS, 1)); page_table: (B, MAXP) ids into
+    the pool viewed as (DS*NPl, ...)."""
     DS, Bl = geom.shards, geom.batch_per_shard
     B = DS * Bl
     positions = cache.seq_lens.reshape(B)
@@ -355,11 +441,26 @@ def _paged_layer_step(cfg, geom, p, x, kpool, vpool, page_table, cache):
     q, k, v = _qkv_step(cfg, p, h, positions)
     shard = torch.arange(DS, device=x.device).repeat_interleave(Bl)
     page, off = cache.cur_page.reshape(B).long(), cache.cur_off.reshape(B).long()
+    if kscale is not None:
+        k, ks = KC.quant_store(k)
+        v, vs = KC.quant_store(v)
+        kscale[shard, page, :, off] = ks
+        vscale[shard, page, :, off] = vs
     kpool[shard, page, :, off] = k.to(kpool.dtype)
     vpool[shard, page, :, off] = v.to(vpool.dtype)
-    pool_shape = (DS * geom.pool_pages,) + tuple(kpool.shape[2:])
-    attn = K.paged_attention(q, kpool.view(pool_shape), vpool.view(pool_shape),
-                             page_table, (cache.seq_lens + 1).reshape(B))
+
+    def flat(pool):
+        if pool is None:
+            return None
+        return pool.view((DS * geom.pool_pages,) + tuple(pool.shape[2:]))
+    args = (q, flat(kpool), flat(vpool))
+    lens = positions + 1
+    if geom.merged_attn:
+        attn = _merged_attention(geom, *args, flat(kscale), flat(vscale),
+                                 page_table, lens, x.dtype)
+    else:
+        attn = K.paged_attention(*args, page_table, lens,
+                                 kscale=flat(kscale), vscale=flat(vscale))
     x = x + attn.reshape(B, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
     return _ffn_step(cfg, p, x)
 
@@ -370,10 +471,13 @@ def paged_layers(cfg: ModelConfig, params: dict, tokens, cache, geom,
     the final norm.  ``page_table``: ``lookup_pages``' (DS, Bl, MAXP)."""
     pt = KC.flat_page_table(geom, page_table)
     x = embed(cfg, params, tokens)
+    quant = cache.kscale is not None
     for layer in range(cfg.n_layers):
-        x = _paged_layer_step(cfg, geom, layer_params(params, layer), x,
-                              cache.kpool[layer], cache.vpool[layer], pt,
-                              cache)
+        x = _paged_layer_step(
+            cfg, geom, layer_params(params, layer), x, cache.kpool[layer],
+            cache.vpool[layer], pt, cache,
+            cache.kscale[layer] if quant else None,
+            cache.vscale[layer] if quant else None)
     return x
 
 

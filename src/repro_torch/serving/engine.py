@@ -17,6 +17,12 @@ The ssm and hybrid families step their state cache instead
 (``kvcache.create_state_cache``); prefill is theirs token by token
 through ``serve_step``.
 
+With ``kv_dtype="int8"`` prefill stores each prompt token's k/v as
+``quant_store`` values and scales, as decode does.  This is a deliberate
+divergence: the reference's prefill casts the float k/v straight into the
+int8 pools and writes no scale, so every prompt token dequantizes to 0
+(ROADMAP Queue 3).
+
 ``release_sequence`` returns a finished sequence's pages (hash-table
 deletes: one indicator-bit clear each, the paper's 1-PM-write deletion,
 matched by the mutation-plan kernel on a card).  ``content_page_keys``
@@ -25,6 +31,7 @@ builds content-addressed page keys for prefix sharing.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -54,6 +61,12 @@ def serve_step(cfg: ModelConfig, geom: Optional[KC.PageGeometry],
     return logits, KC.commit_token(cache)
 
 
+def make_serve_step(cfg: ModelConfig, geom):
+    """``serve_step`` with the model and geometry bound: ``step(params,
+    tokens, cache) -> (logits, cache)``."""
+    return functools.partial(serve_step, cfg, geom)
+
+
 # ---------------------------------------------------------------------------
 # prefill — fills pools page-contiguously and registers mappings
 # ---------------------------------------------------------------------------
@@ -73,7 +86,7 @@ def prefill(cfg: ModelConfig, geom: KC.PageGeometry, params: dict,
         raise ValueError(f"prompt length {S} is not a multiple of the page "
                          f"size {PS}")
     npages = S // PS
-    KVH, D = geom.kv_heads, geom.head_dim
+    KVH = geom.kv_heads
     dev = cache.kpool.device
 
     x = T.embed(cfg, params, inputs)
@@ -83,6 +96,14 @@ def prefill(cfg: ModelConfig, geom: KC.PageGeometry, params: dict,
             .reshape(1, Bl, npages).expand(DS, Bl, npages)) % geom.pool_pages
     pf = phys.reshape(DS, Bl * npages).long()
 
+    def page_major(t):       # (B, S, KVH, X) -> (DS, Bl * NP, KVH, PS, X)
+        t = t.reshape(DS, Bl, npages, PS, KVH, t.shape[-1]).movedim(3, 4)
+        return t.reshape(DS, Bl * npages, KVH, PS, t.shape[-1])
+
+    def put(pool, pages):    # one layer's pool (DS, NPl, ...) <- pages
+        for s in range(DS):
+            pool[s, pf[s]] = pages[s]
+
     for layer in range(cfg.n_layers):
         p = T.layer_params(params, layer)
         h = L.apply_norm(cfg, p, "ln1", x)
@@ -90,11 +111,12 @@ def prefill(cfg: ModelConfig, geom: KC.PageGeometry, params: dict,
         x = x + attn @ p["wo"].to(x.dtype)
         x = x + T.ffn(cfg, p, L.apply_norm(cfg, p, "ln2", x))[0]
         # bulk page fill: (B,S,KVH,D) -> (DS,Bl*NP,KVH,PS,D) -> pool scatter
-        for pool, kv in ((cache.kpool[layer], k), (cache.vpool[layer], v)):
-            kw = kv.reshape(DS, Bl, npages, PS, KVH, D).movedim(3, 4)
-            kw = kw.reshape(DS, Bl * npages, KVH, PS, D).to(pool.dtype)
-            for s in range(DS):
-                pool[s, pf[s]] = kw[s]
+        for pools, scales, kv in ((cache.kpool, cache.kscale, k),
+                                  (cache.vpool, cache.vscale, v)):
+            if scales is not None:       # int8: quantized, with its scales
+                kv, sc = KC.quant_store(kv)
+                put(scales[layer], page_major(sc))
+            put(pools[layer], page_major(kv).to(pools.dtype))
     x = T.final_norm(cfg, params, x)
     logits = T.logits_fn(cfg, params, x[:, -1])
 

@@ -24,8 +24,12 @@ is the crash-checkable twin of the page allocation.
 (recurrent state, conv windows, hybrid's ring buffers and global linear
 caches); those families never touch the page table.
 
-Not ported yet: ``kv_dtype="int8"`` (``quant_store``/``dequant``) and the
-``merged_attn`` decode path.
+``kv_dtype="int8"`` stores the pools as int8 with one float32 scale per
+(token, head) in ``kscale``/``vscale`` (``quant_store``/``dequant``, the
+reference's arithmetic); the decode step attends over them with the
+paged-attention kernel's int8 mode.  ``merged_attn`` selects the
+reference's legacy decode path (pages gathered and merged into one
+token range, plain attention); it launches no attention kernel.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 
 from repro_torch.api import ExecPolicy, make_store
 from repro_torch.core.words import resolve_device
+from repro_torch.kernels.paged_attn_ref import dequant, quant_store  # noqa: F401
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.rdma import verbs as rv
 
@@ -56,8 +61,11 @@ class PageGeometry:
     shards: int               # DS (data shards)
     batch_per_shard: int
     pool_pages: int           # NPl physical pages per shard
-    kv_dtype: str             # float32 | bfloat16 | float16
+    kv_dtype: str             # float32 | bfloat16 | float16 | int8
     store: Any                # repro_torch.api store: the page-table backend
+    # the reference's legacy decode path: pages gathered and merged
+    # (MAXP, PS) -> T before a plain attention (no attention kernel)
+    merged_attn: bool = False
 
     @property
     def batch(self) -> int:
@@ -77,6 +85,7 @@ def page_table_slots(geom_entries: int, load: float = 0.5) -> int:
 def make_geometry(cfg: ModelConfig, shape: ShapeConfig, shards: int,
                   page_size: int = 512, oversub: float = 1.0,
                   kv_dtype: Optional[str] = None,
+                  merged_attn: bool = False,
                   scheme: str = "continuity",
                   policy: Optional[ExecPolicy] = None,
                   device: str = "cuda") -> PageGeometry:
@@ -87,9 +96,6 @@ def make_geometry(cfg: ModelConfig, shape: ShapeConfig, shards: int,
         raise ValueError(f"global batch {shape.global_batch} does not split "
                          f"into {shards} shards")
     kv_dtype = kv_dtype or cfg.kv_quant.replace("none", cfg.dtype)
-    if kv_dtype == "int8":
-        raise NotImplementedError("kv_dtype='int8' is not ported yet "
-                                  "(ROADMAP.md, Queue 1 #11)")
     device = resolve_device(device)
     bl = shape.global_batch // shards
     maxp = (shape.seq_len + page_size - 1) // page_size
@@ -99,12 +105,15 @@ def make_geometry(cfg: ModelConfig, shape: ShapeConfig, shards: int,
     return PageGeometry(
         layers=cfg.n_layers, kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
         page_size=page_size, max_pages=maxp, shards=shards,
-        batch_per_shard=bl, pool_pages=pool, kv_dtype=kv_dtype, store=store)
+        batch_per_shard=bl, pool_pages=pool, kv_dtype=kv_dtype, store=store,
+        merged_attn=merged_attn)
 
 
 class PagedCache(NamedTuple):
     kpool: torch.Tensor         # (L, DS, NPl, KVH, PS, D) kv_dtype
     vpool: torch.Tensor
+    kscale: Optional[torch.Tensor]  # (L, DS, NPl, KVH, PS, 1) f32 when int8
+    vscale: Optional[torch.Tensor]
     table: Tuple[Any, ...]      # DS store tables
     next_free: torch.Tensor     # (DS,) int32 — physical page bump allocator
     seq_ids: torch.Tensor       # (DS, Bl) int32 words: global sequence ids
@@ -126,9 +135,15 @@ def create_cache(g: PageGeometry) -> PagedCache:
         return torch.zeros(shape, dtype=I32, device=dev)
 
     dt = getattr(torch, g.kv_dtype)
+    quant = g.kv_dtype == "int8"
+
+    def scales():
+        return (torch.zeros(pool_shape(g)[:-1] + (1,), dtype=torch.float32,
+                            device=dev) if quant else None)
     return PagedCache(
         kpool=torch.zeros(pool_shape(g), dtype=dt, device=dev),
         vpool=torch.zeros(pool_shape(g), dtype=dt, device=dev),
+        kscale=scales(), vscale=scales(),
         table=tuple(g.store.create() for _ in range(DS)),
         next_free=zeros(DS),
         seq_ids=torch.arange(DS * Bl, dtype=I32, device=dev).reshape(DS, Bl),

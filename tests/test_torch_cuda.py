@@ -1217,3 +1217,190 @@ def test_twin_forward_on_card_matches_cpu(dev, name):
     got, aux_g = T.forward(cfg, _to(params, "cuda"), x.cuda())
     torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
     torch.testing.assert_close(aux_g.cpu(), aux, atol=2e-5, rtol=0)
+
+
+# -- int8 KV pages, the merged path, training and checkpoints (slice 10) -----
+
+def int8_case(seed, B, G, D, PS, MAXP, lens, dev, dtype):
+    """``attn_case``'s pools quantized by ``quant_store`` (int8 pools and
+    float32 scales), on the card; q in ``dtype``."""
+    q, kp, vp, pt, ln = attn_case(seed, B, 2 * G, 2, D, PS, MAXP, lens=lens)
+    kq, ks = KC.quant_store(kp)
+    vq, vs = KC.quant_store(vp)
+    return (q.to(dev, dtype), kq.to(dev), vq.to(dev), pt.to(dev), ln.to(dev),
+            ks.to(dev), vs.to(dev))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 6e-2)])
+@pytest.mark.parametrize("G,D", [(1, 64), (8, 64), (1, 128), (8, 128)])
+@pytest.mark.parametrize("splits", [0, 3])
+def test_int8_paged_attention_matches_plain(dev, dtype, tol, G, D, splits):
+    """The int8 mode against the plain version: lengths 0, 1, on page
+    boundaries and one past; a zero-scale row; zeros for length 0; a
+    second call bit-identical; one launch counted."""
+    PS, MAXP = 16, 6
+    q, kq, vq, pt, ln, ks, vs = int8_case(G * D, 7, G, D, PS, MAXP,
+                                          [0, 1, PS, PS + 1, 2 * PS,
+                                           2 * PS + 1, MAXP * PS], dev, dtype)
+    ks[pt[3, 0].long(), 0, 2] = 0.0          # a zero-scale row, mapped
+    vs[pt[4, 1].long(), 1, 0] = 0.0
+    scale = float(1.0 / D ** 0.5)
+    pa = paged_attn.paged_attention
+    n0 = pa.launches, pa.int8_launches
+    got = (paged_attn.paged_attention(q, kq, vq, pt, ln, kscale=ks,
+                                      vscale=vs) if not splits else
+           _cuda.launch_paged_attn(q, kq, vq, pt, ln, scale, splits=splits,
+                                   kscale=ks, vscale=vs))
+    want = paged_attention_ref(q, kq, vq, pt, ln, kscale=ks, vscale=vs)
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.int8_launches) == (n0[0] + (not splits),
+                                               n0[1] + (not splits))
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert float((got[1:].float() - want[1:].float()).abs().max()) < tol
+    again = _cuda.launch_paged_attn(q, kq, vq, pt, ln, scale,
+                                    splits=splits, kscale=ks, vscale=vs)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_paged_attention_ignores_poisoned_pages(dev, dtype):
+    """Poison (int8 extremes, huge and NaN scales) in every page not read
+    leaves the output bit-identical."""
+    q, kq, vq, pt, ln, ks, vs = int8_case(3, 5, 8, 128, 16, 5,
+                                          [1, 17, 33, 64, 80], dev, dtype)
+    base = paged_attn.paged_attention(q, kq, vq, pt, ln, kscale=ks,
+                                      vscale=vs)
+    read = torch.zeros(kq.shape[0], dtype=torch.bool, device=dev)
+    for b in range(pt.shape[0]):
+        ids = pt[b, :-(-int(ln[b]) // 16)]
+        read[ids[ids >= 0].long()] = True
+    kq2, vq2, ks2, vs2 = kq.clone(), vq.clone(), ks.clone(), vs.clone()
+    kq2[~read], vq2[~read] = 127, -127
+    ks2[~read], vs2[~read] = 1e30, float("nan")
+    out = paged_attn.paged_attention(q, kq2, vq2, pt, ln, kscale=ks2,
+                                     vscale=vs2)
+    assert torch.equal(out, base)
+
+
+def test_int8_paged_attention_rejects_operands_it_does_not_take(dev):
+    q, kq, vq, pt, ln, ks, vs = int8_case(1, 2, 4, 64, 8, 3, [5, 9], dev,
+                                          torch.float32)
+    with pytest.raises(ValueError, match="kpool must be torch.int8"):
+        paged_attn.paged_attention(q, kq.float(), vq, pt, ln, kscale=ks,
+                                   vscale=vs)
+    with pytest.raises(ValueError, match="vscale"):
+        paged_attn.paged_attention(q, kq, vq, pt, ln, kscale=ks)
+    with pytest.raises(ValueError, match="kscale"):
+        paged_attn.paged_attention(q, kq, vq, pt, ln, kscale=ks.double(),
+                                   vscale=vs)
+    with pytest.raises(ValueError, match="kpool must be"):
+        paged_attn.paged_attention(q, kq, vq, pt, ln)   # int8, no scales
+
+
+def test_int8_serve_steps_on_card_match_cpu(dev):
+    """Int8 prefill and decode on the card (the int8 kernel) against the
+    CPU (plain version), then one merged-path step that launches no
+    attention kernel: logits within 1e-4, page tables byte-equal, int8
+    pools equal in 99.9 % of entries and never more than 1 apart."""
+    import dataclasses
+    cfg = smoke_config("yi-6b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(1)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 32)).astype(
+        np.int32))
+    fed = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 6)).astype(np.int32))
+    runs = []
+    for d in ("cpu", "cuda"):
+        p = _to(params, d)
+        geom = KC.make_geometry(cfg, ShapeConfig("t", 128, 4, "decode"),
+                                shards=2, page_size=16, kv_dtype="int8",
+                                device=d)
+        pa = paged_attn.paged_attention
+        n0 = pa.launches, pa.int8_launches
+        lg, cache = E.prefill(cfg, geom, p, prompt.to(d),
+                              KC.create_cache(geom))
+        logits = [lg]
+        for i in range(fed.shape[1] - 1):
+            lg, cache = E.serve_step(cfg, geom, p, fed[:, i].to(d), cache)
+            logits.append(lg)
+        n = (fed.shape[1] - 1) * cfg.n_layers if d == "cuda" else 0
+        assert (pa.launches - n0[0], pa.int8_launches - n0[1]) == (n, n)
+        merged = dataclasses.replace(geom, merged_attn=True)
+        n0 = pa.launches, pa.int8_launches
+        lg, cache = E.serve_step(cfg, merged, p, fed[:, -1].to(d), cache)
+        assert (pa.launches, pa.int8_launches) == n0
+        logits.append(lg)
+        runs.append((logits, convert.cache_to_numpy(cache)))
+    (lc, sc), (lg_, sg) = runs
+    for a, b in zip(lc, lg_):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+    for f in sc["table"]:
+        assert np.array_equal(sc["table"][f], sg["table"][f]), f
+    for f in ("kpool", "vpool"):
+        diff = np.abs(sg[f].astype(np.int32) - sc[f].astype(np.int32))
+        assert diff.max() <= 1 and (diff == 0).mean() >= 0.999, f
+    for f in ("kscale", "vscale"):
+        np.testing.assert_allclose(sg[f], sc[f], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("name", ["yi-6b", "granite-moe-1b-a400m",
+                                  "mamba2-370m"])
+def test_train_steps_on_card_match_cpu(dev, name):
+    """From the same float32 masters (two microbatches, remat full): the
+    first step's gradients on the card within 1e-4 of each leaf's largest
+    |g| on the CPU, and three AdamW steps' losses within 1e-4 relative.
+    (The parameters are not compared: Adam's normalised step turns a
+    last-bit difference of a near-zero gradient into a move of up to lr.)"""
+    import dataclasses
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import (make_train_step,
+                                                 microbatch_grads)
+    cfg = dataclasses.replace(smoke_config(name), remat="full")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           master_dtype=torch.float32)
+    step_fn = make_train_step(cfg, O.OptConfig(lr=1e-3, warmup=2),
+                              num_micro=2)
+    runs = []
+    for d in ("cpu", "cuda"):
+        # copies: the optimizer updates its parameters in place
+        p = O.tree_map(lambda t: t.to(d, copy=True), params)
+        s = O.init(p)
+        batches = [launch_train.synthetic_batch(cfg, 0, i, 4, 48, d)
+                   for i in range(3)]
+        _, grads = microbatch_grads(cfg, p, batches[0], 2, torch.float32)
+        losses = []
+        for b in batches:
+            p, s, stats = step_fn(p, s, b)
+            losses.append(float(stats["loss"]))
+        runs.append((losses, dict(O.leaves(grads))))
+    (lc, gc), (lg, gg) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for k, a in gc.items():
+        lim = 1e-4 * float(a.abs().max())
+        assert float((gg[k].cpu() - a).abs().max()) <= lim, k
+
+
+def test_checkpoint_from_card_restores_onto_card(dev, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.training import optimizer as O
+    cfg = smoke_config("yi-6b")
+    p = T.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                      master_dtype=torch.float32)
+    state = O.init(p)
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(2, {"p": p, "o": state})
+    saved = {k: t.clone() for k, t in O.leaves(p)}
+    for _, t in O.leaves(p):
+        t.add_(1.0)                      # after the save: not in it
+    mgr.wait()
+    template = {"p": T.init_params(cfg, torch.Generator(dev).manual_seed(1),
+                                   master_dtype=torch.float32),
+                "o": O.init(p)}
+    got, step, _ = CheckpointManager(str(tmp_path)).restore(template)
+    assert step == 2 and got["o"].step.device.type == "cuda"
+    for k, t in O.leaves(got["p"]):
+        assert t.device.type == "cuda"
+        assert torch.equal(t, saved[k]), k

@@ -224,8 +224,19 @@ def test_geometry_and_device_rules():
         assert getattr(g, f) == getattr(jg, f), f
     assert dataclasses.asdict(g.store.cfg) == dataclasses.asdict(
         jg.store.cfg)
-    with pytest.raises(NotImplementedError):
-        KC.make_geometry(cfg, shape, shards=2, kv_dtype="int8", device="cpu")
+    # int8 pages and the merged path: the reference's fields, its scales
+    g8 = KC.make_geometry(cfg, shape, shards=2, kv_dtype="int8",
+                          merged_attn=True, device="cpu")
+    jg8 = JKC.make_geometry(jax_smoke_config("yi-6b"), JShape(
+        "t", seq_len=128, global_batch=4, kind="decode"), shards=2,
+        kv_dtype="int8", merged_attn=True)
+    for f in ("kv_dtype", "merged_attn", "pool_pages"):
+        assert getattr(g8, f) == getattr(jg8, f), f
+    c8, jc8 = KC.create_cache(g8), JKC.create_cache(jg8)
+    for f in ("kpool", "kscale", "vscale"):
+        t, j = getattr(c8, f), getattr(jc8, f)
+        assert tuple(t.shape) == j.shape and str(t.dtype)[6:] == str(j.dtype)
+    assert KC.create_cache(g).kscale is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             KC.make_geometry(cfg, shape, shards=2)
