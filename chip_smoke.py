@@ -114,7 +114,8 @@ Phases, in order:
    output, a limit that an output one token or one page short is shown to
    break); timed at both batches beside its bound, its plain version,
    and ``scaled_dot_product_attention`` over the same tokens laid out
-   densely.
+   densely; the float32 mode (the CUDA-core loop) at batch 32 held within
+   2e-5 of its plain version and timed the same way, SDPA in float32.
 5. Serving Yi-6B at full width (32 layers, d 4096, 32/4 heads, vocab
    64,000; bf16 weights from a seeded generator, residual output
    projections scaled by 1/sqrt(2L)) through the port's ``launch/serve``
@@ -133,7 +134,8 @@ Phases, in order:
    float32 step with the kernel against the same step with the plain
    attention (within 6e-2), at the launcher's init and on the served
    weights.  The checks run outside the count: the launches reported are
-   prefill's, the 63 steps' and the releases'.
+   prefill's, the 63 steps' and the releases'.  The float32 twins'
+   prefill and decode count the float32-q loop's launches, each from 0.
 5b. Int8 KV pages at full width on phase 5's weights, launches counted
    from 0: an int8 geometry of phase 5's shape (page size 16, 4,224
    pages), the same 32 prompts prefilled and 31 greedy decode steps
@@ -145,7 +147,9 @@ Phases, in order:
    plain version, and the same step through the merged path
    (``merged_attn``), which must launch no attention kernel; every
    sequence released; the int8 kernel timed at B 32 beside its bound, its
-   plain version and the bf16 kernel on the same tokens unquantized.
+   plain version and the bf16 kernel on the same tokens unquantized, and
+   its output at the host's split count equal to the bf16 mode's on the
+   plain version's dequantized pools bit for bit.
 6. The continuous batcher on the same weights answers 48 requests in 32
    slots.
 6b. The other families at full width, through ``launch/serve``'s
@@ -157,7 +161,8 @@ Phases, in order:
    the host's bump allocation; one more step with every layer's kernel
    attention (D 64, G 3) held in place against the plain version and the
    share of MoE assignments dropped at B 16, the whole step timed; every
-   sequence released; a float32 twin (4 sequences, 512-token prompts, 8
+   sequence released; the MoE layer run twice on one input, bit-identical;
+   a float32 twin (4 sequences, 512-token prompts, 8
    steps, capacity factor num_experts / top_k so nothing drops) against
    its own forward (3e-3 / 1e-3); the attention kernel timed at this
    decode shape beside its bound, plain version and SDPA.  (b) mamba2-370m
@@ -199,7 +204,9 @@ Phases, in order:
    ``train_launches``, and attention's times at the moe path's decode
    shape as ``moe_shape``; the int8 mode as its own row,
    ``int8_attention``, with its launches on the int8 path of phase 5b,
-   and the merged path's attention launches as ``merged_launches``),
+   and the merged path's attention launches as ``merged_launches``; the
+   float32-q loop as ``float32_attention``, with its launches on the
+   float32 twins of phases 5 and 6b (a)),
    error, times and bound; the card's name and power limit;
    last ``{"ok": true, "device": {...}}``.
 
@@ -2199,28 +2206,32 @@ def _quantized(a):
     return (q, kq, vq, pt, lens), {"kscale": ks, "vscale": vs}
 
 
-def attention_timing(torch, B, H, KVH, D, MAXP, NP, last, seed, card):
+def attention_timing(torch, B, H, KVH, D, MAXP, NP, last, seed, card,
+                     dtype=None):
     """The kernel at one decode shape (``B`` sequences of ``last`` tokens
-    on a pool of ``NP`` pages, bf16, scores of std 1.2): held within
-    ``_attn_limit`` of its plain version, a limit that an output one token
-    or one page short is shown to break; timed on the device beside its
-    bound, its plain version and ``scaled_dot_product_attention`` over the
-    same tokens laid out densely.  Returns (max_abs_err, ms, plain_ms,
-    bound_ms, library_ms)."""
+    on a pool of ``NP`` pages, in ``dtype``: bf16 by default, or float32,
+    the CUDA-core loop; scores of std 1.2): held within ``_attn_limit``
+    (float32: 2e-5) of its plain version, a limit that an output one
+    token or one page short is shown to break; timed on the device beside
+    its bound, its plain version and ``scaled_dot_product_attention`` in
+    the same dtype over the same tokens laid out densely.  Returns
+    (max_abs_err, ms, plain_ms, bound_ms, library_ms)."""
     from repro_torch.kernels import _cuda, paged_attn
     from repro_torch.kernels.paged_attn_ref import paged_attention_ref
     kern, plain = paged_attn.paged_attention, paged_attention_ref
     PS = PAGE_SIZE
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
     sdpa = torch.nn.functional.scaled_dot_product_attention
     batches = [_attn_case(torch, seed + i, B, H, KVH, D, PS, MAXP, NP=NP,
-                          lens=[last] * B, dtype=torch.bfloat16,
+                          lens=[last] * B, dtype=dtype,
                           q_scale=4.0) for i in range(4)]
     full = batches[0]
     want = plain(*full).float()
-    limit = _attn_limit(want)
+    limit = ATTN_TOL["float32"] if f32 else _attn_limit(want)
     e_full = float((kern(*full).float() - want).abs().max())
-    _check(e_full <= limit, f"B={B} H={H} D={D} paged attention within "
-           f"{limit:.3g} of its plain version ({e_full})")
+    _check(e_full <= limit, f"B={B} H={H} D={D} {dtype} paged attention "
+           f"within {limit:.3g} of its plain version ({e_full})")
     q, kp, vp, pt, lens = full
     for cut, what in ((1, "its last token"), (PS, "its last page")):
         moved = float((plain(q, kp, vp, pt, lens - cut).float() - want)
@@ -2243,12 +2254,14 @@ def attention_timing(torch, B, H, KVH, D, MAXP, NP, last, seed, card):
     lib_out = sdpa(*dense_b[0], enable_gqa=True)[:, :, 0]
     _check(float((lib_out.float() - kern(*full).float()).abs().max())
            < ATTN_TOL["bfloat16"], "the library call computes the same")
-    nbytes = _attn_bytes("bf16", B, H, KVH, D, MAXP, last)
+    nbytes = _attn_bytes("float32" if f32 else "bf16", B, H, KVH, D, MAXP,
+                         last)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     splits = _cuda.paged_attn_splits(
         B * KVH, MAXP, _cuda.sm_count(0), _cuda.resident_blocks(
-            0, _cuda.PAGED_ATTN_DTYPES[torch.bfloat16], D))
-    print(f"paged_attention: {ms * 1e3:.2f} us on the device per launch "
+            0, _cuda.PAGED_ATTN_DTYPES[dtype], D, H // KVH))
+    print(f"{'float32 ' if f32 else ''}paged_attention: {ms * 1e3:.2f} us "
+          f"on the device per launch "
           f"at B={B} H={H} KVH={KVH} D={D} PS={PS} len={last}, {splits} "
           f"splits (bound {bound_ms * 1e3:.2f} us from "
           f"{nbytes / 1e6:.2f} MB; plain version {plain_ms * 1e3:.2f} us; "
@@ -2260,8 +2273,9 @@ def attention_timing(torch, B, H, KVH, D, MAXP, NP, last, seed, card):
     return e_full, ms, plain_ms, bound_ms, lib_ms
 
 
-def attention_phase(torch, card) -> dict:
-    """Phase 4; returns the kernel's report row (launches filled later)."""
+def attention_phase(torch, card) -> tuple:
+    """Phase 4; returns the kernel's report row and the float32 mode's
+    (launches filled later)."""
     from repro_torch.kernels import paged_attn
     from repro_torch.kernels.paged_attn_ref import paged_attention_ref
     kern, plain = paged_attn.paged_attention, paged_attention_ref
@@ -2318,15 +2332,24 @@ def attention_phase(torch, card) -> dict:
                                   PROMPT_LEN + GEN - 1, 20, card)
               for B in (SERVE_B, LAUNCHER_B)}
     e_full, ms, plain_ms, bound_ms, lib_ms = timing[SERVE_B]
+    # the float32 mode (the CUDA-core loop) at the serving shape
+    f32 = attention_timing(torch, SERVE_B, H, KVH, D, MAXP, SERVE_B * MAXP,
+                           PROMPT_LEN + GEN - 1, 50, card,
+                           dtype=torch.float32)
     print(f"phase 4: paged attention equals its plain version (max_abs_err "
           f"float32 {errs['float32']:.3g}, bfloat16 {errs['bfloat16']:.3g}; "
-          f"Yi-6B shape {e_full:.3g}); a length of 0 gives zeros; poisoned "
-          f"unmapped pages ignored; two calls bit-identical", flush=True)
-    return {"name": "paged_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
-            "replaces": "src/repro/kernels/paged_attn.py:80",
-            "max_abs_err": e_full, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms}
+          f"Yi-6B shape {e_full:.3g}, float32 {f32[0]:.3g}); a length of 0 "
+          f"gives zeros; poisoned unmapped pages ignored; two calls "
+          f"bit-identical", flush=True)
+    row = {"name": "paged_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+           "replaces": "src/repro/kernels/paged_attn.py:80",
+           "max_abs_err": e_full, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms}
+    f32_row = dict(row, name="float32_attention", max_abs_err=f32[0],
+                   ms=f32[1], plain_ms=f32[2], bound_ms=f32[3],
+                   library_ms=f32[4])
+    return row, f32_row
 
 
 # ---------------------------------------------------------------------------
@@ -2389,14 +2412,15 @@ def _uncounted(run):
     from repro_torch.kernels import scan_walk
     kerns = (probe.probe_segments, mutate.mutate_segments,
              paged_attn.paged_attention, scan_walk.scan_walk)
+    pa = paged_attn.paged_attention
     saved = [k.launches for k in kerns]
-    saved_int8 = paged_attn.paged_attention.int8_launches
+    saved_modes = pa.int8_launches, pa.float32_launches
     try:
         return run()
     finally:
         for k, n in zip(kerns, saved):
             k.launches = n
-        paged_attn.paged_attention.int8_launches = saved_int8
+        pa.int8_launches, pa.float32_launches = saved_modes
 
 
 def _swap_attention(attention, run):
@@ -2458,6 +2482,22 @@ def _device_profile(torch, fn):
              for e in ops[:5]])
 
 
+# the float32-q attention loop's launches on each float32 twin's prefill
+# and decode (phases 5 and 6b (a)), each counted from 0
+F32_TWIN_LAUNCHES: dict = {}
+
+
+def _float32_path(what, run):
+    """``run()`` with the float32-q attention count set to 0 just before it
+    and read just after, into ``F32_TWIN_LAUNCHES[what]``."""
+    from repro_torch.kernels import paged_attn
+    pa = paged_attn.paged_attention
+    pa.float32_launches = 0
+    out = run()
+    F32_TWIN_LAUNCHES[what] = pa.float32_launches
+    return out
+
+
 def float32_twin(torch, cfg, params, prompts, what) -> float:
     """The serving path in float32 at full width, small batch, on the
     weights upcast: decode's last logits against the float32 dense forward
@@ -2470,9 +2510,12 @@ def float32_twin(torch, cfg, params, prompts, what) -> float:
     B32, P32, G32 = CHECK_SEQS, 256, 8     # prompts cut for the time limit
     g32 = serve.make_geometry(cfg32, B32, P32, G32, page_size=PAGE_SIZE,
                               shards=1, device="cuda")
-    lg32, c32 = serve.run_prefill(cfg32, g32, p32, prompts[:B32, :P32],
-                                  KC.create_cache(g32))
-    t32, lg32, c32 = serve.run_decode(cfg32, g32, p32, lg32, c32, G32)
+
+    def path():
+        lg32, c32 = serve.run_prefill(cfg32, g32, p32, prompts[:B32, :P32],
+                                      KC.create_cache(g32))
+        return serve.run_decode(cfg32, g32, p32, lg32, c32, G32)
+    t32, lg32, c32 = _float32_path(f"Yi-6B float32 twin, {what}", path)
     x, _ = T.forward(cfg32, p32, torch.cat(
         [prompts[:B32, :P32], t32[:, :G32 - 1]], 1))
     err32 = float((lg32 - T.logits_fn(cfg32, p32, x[:, -1])).abs().max())
@@ -2550,6 +2593,7 @@ def serving_phase(torch, card):
               paged_attn.paged_attention):
         k.launches = 0
     paged_attn.paged_attention.int8_launches = 0
+    paged_attn.paged_attention.float32_launches = 0
     (lg, cache), t_pre = _timed(torch, lambda: serve.run_prefill(
         cfg, geom, params, prompts, cache))
     _check(lg.shape == (SERVE_B, cfg.vocab) and bool(lg.isfinite().all()),
@@ -2682,8 +2726,9 @@ def serving_phase(torch, card):
           flush=True)
     for name, n in launches.items():
         _check(n > 0, f"the serving path launched {name}")
-    _check(paged_attn.paged_attention.int8_launches == 0,
-           "the bf16 serving path launches no int8 attention")
+    _check(paged_attn.paged_attention.int8_launches == 0
+           and paged_attn.paged_attention.float32_launches == 0,
+           "the bf16 serving path launches no int8 or float32-q attention")
     _check(launches["paged_attention"] == n_steps * cfg.n_layers,
            "one attention launch per layer per decode step")
     return cfg, params, launches, {"cache": cache, "toks": toks}
@@ -2743,6 +2788,21 @@ def int8_attention_timing(torch, B, H, KVH, D, MAXP, NP, last, seed, card):
                        - want).abs().max())
         _check(moved > limit, f"the int8 limit rejects an output that "
                f"drops {what} ({moved} vs {limit:.3g})")
+    # the route's output equals the bf16 mode's on the plain version's
+    # dequantized pools, bit for bit, at the host's split count
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.paged_attn_ref import dequant
+    splits = _cuda.paged_attn_splits(
+        B * KVH, MAXP, _cuda.sm_count(0), _cuda.resident_blocks(
+            0, _cuda.PAGED_ATTN_INT8[q.dtype], D, H // KVH))
+    scale = 1.0 / D ** 0.5
+    same = torch.equal(
+        _cuda.launch_paged_attn(*full, scale, splits=splits, **sc),
+        _cuda.launch_paged_attn(q, dequant(kq, sc["kscale"], q.dtype),
+                                dequant(vq, sc["vscale"], q.dtype), pt,
+                                lens, scale, splits=splits))
+    _check(same, f"the int8 route's output equals the bf16 mode's on the "
+           f"dequantized pools bit for bit ({splits} splits)")
     ms = _device_ms(torch, lambda a: kern(*a[0], **a[1]), batches, 100,
                     KERNEL_SLEEP)
     plain_ms = _device_ms(torch, lambda a: plain(*a[0], **a[1]), batches, 10,
@@ -2755,11 +2815,12 @@ def int8_attention_timing(torch, B, H, KVH, D, MAXP, NP, last, seed, card):
           f"{bound_ms * 1e3:.2f} us from {nbytes / 1e6:.2f} MB; plain "
           f"version {plain_ms * 1e3:.2f} us; the bf16 kernel on the same "
           f"tokens unquantized {bf16_ms * 1e3:.2f} us; no single library "
-          f"call takes int8 K/V); max_abs_err {err:.3g}, limit {limit:.3g} "
-          f"[{card}]", flush=True)
+          f"call takes int8 K/V); max_abs_err {err:.3g}, limit {limit:.3g}; "
+          f"at the host's {splits} splits equal to the bf16 mode's output "
+          f"on the dequantized pools bit for bit [{card}]", flush=True)
     del batches, bf16, full, sc, q, kq, vq
     torch.cuda.empty_cache()
-    return err, ms, plain_ms, bound_ms, bf16_ms
+    return err, ms, plain_ms, bound_ms, bf16_ms, splits
 
 
 def int8_phase(torch, cfg, params, served, card) -> dict:
@@ -2871,7 +2932,7 @@ def int8_phase(torch, cfg, params, served, card) -> dict:
     served.clear()
     torch.cuda.empty_cache()
     MAXP = -(-(PROMPT_LEN + GEN) // PS)
-    err, ms, plain_ms, bound_ms, bf16_ms = int8_attention_timing(
+    err, ms, plain_ms, bound_ms, bf16_ms, splits = int8_attention_timing(
         torch, SERVE_B, cfg.n_heads, cfg.n_kv_heads, cfg.hd, MAXP,
         SERVE_B * MAXP, PROMPT_LEN + GEN - 1, 30, card)
     return {"name": "int8_attention", "route": "cuda",
@@ -2881,6 +2942,7 @@ def int8_phase(torch, cfg, params, served, card) -> dict:
             "max_abs_err": max(err, max(e for e, _ in layer_err)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": None, "bf16_kernel_ms": bf16_ms,
+            "bit_equal_bf16_splits": splits,
             "merged_launches": merged_launches, "top1_vs_bf16": top1}
 
 
@@ -2957,6 +3019,7 @@ def _kernel_launches() -> dict:
             "mutate_segments": mutate.mutate_segments.launches,
             "paged_attention": paged_attn.paged_attention.launches,
             "int8_attention": paged_attn.paged_attention.int8_launches,
+            "float32_attention": paged_attn.paged_attention.float32_launches,
             "scan_walk": scan_walk.scan_walk.launches}
 
 
@@ -2966,6 +3029,7 @@ def _reset_launches() -> None:
               paged_attn.paged_attention, scan_walk.scan_walk):
         k.launches = 0
     paged_attn.paged_attention.int8_launches = 0
+    paged_attn.paged_attention.float32_launches = 0
 
 
 class _StepLog:
@@ -3131,8 +3195,25 @@ def moe_phase(torch, card) -> tuple:
         _check(launches[name] > 0, f"the moe path launched {name}")
     _check(launches["paged_attention"] == n_steps * cfg.n_layers,
            "one attention launch per layer per decode step")
-    _check(launches["int8_attention"] == 0,
-           "the bf16 moe path launches no int8 attention")
+    _check(launches["int8_attention"] == launches["float32_attention"] == 0,
+           "the bf16 moe path launches no int8 or float32-q attention")
+
+    # the sorted dispatch twice on one input: the same bits (its combine
+    # adds each token's contributions in a fixed order, with no atomics)
+    def moe_twice():
+        lp = T.layer_params(params, 0)
+        x = torch.randn(MOE_B, MOE_PROMPT, cfg.d_model, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED))
+        x = x.to(lp["we_gate"].dtype)
+        return [L.moe(cfg, lp, x) for _ in range(2)]
+    (y0, aux0), (y1, aux1) = _uncounted(moe_twice)
+    _check(torch.equal(y0, y1) and torch.equal(aux0, aux1),
+           "granite's MoE layer (sorted dispatch) gives the same bits in two "
+           "runs on one input")
+    print(f"phase 6b (a): granite's MoE layer run twice on one input "
+          f"({MOE_B} x {MOE_PROMPT} tokens, layer 0, {y0.dtype}): "
+          f"bit-identical [{card}]", flush=True)
+    del y0, y1
 
     # the float32 twin: decode against its own forward, nothing dropped
     def twin():
@@ -3141,10 +3222,13 @@ def moe_phase(torch, card) -> tuple:
             m, capacity_factor=m.num_experts / m.top_k))
         g32 = serve.make_geometry(cfg32, MOE_TWIN_B, MOE_PROMPT, MOE_TWIN_GEN,
                                   page_size=PS, shards=1, device="cuda")
-        lg32, c32 = serve.run_prefill(cfg32, g32, p32, prompts[:MOE_TWIN_B],
-                                      KC.create_cache(g32))
-        t32, lg32, c32 = serve.run_decode(cfg32, g32, p32, lg32, c32,
-                                          MOE_TWIN_GEN)
+
+        def path():
+            lg32, c32 = serve.run_prefill(cfg32, g32, p32,
+                                          prompts[:MOE_TWIN_B],
+                                          KC.create_cache(g32))
+            return serve.run_decode(cfg32, g32, p32, lg32, c32, MOE_TWIN_GEN)
+        t32, lg32, c32 = _float32_path("granite float32 twin", path)
         x, _ = T.forward(cfg32, p32, torch.cat(
             [prompts[:MOE_TWIN_B], t32[:, :MOE_TWIN_GEN - 1]], 1))
         return _excess(torch, lg32, T.logits_fn(cfg32, p32, x[:, -1]))
@@ -3746,7 +3830,8 @@ def _smoke(torch, twins) -> int:
                 "latency_floor_ms": floor["tok_warm_us"] * WALK_B / 1e3}
 
     # -- phase 4: paged attention against its plain version --------------
-    rows.append(attention_phase(torch, card))
+    attn_row, f32_row = attention_phase(torch, card)
+    rows.append(attn_row)
     torch.cuda.empty_cache()
 
     # -- phase 5: serving Yi-6B, its launches counted ---------------------
@@ -3799,6 +3884,14 @@ def _smoke(torch, twins) -> int:
             r["merged_launches"] = int8_row["merged_launches"]
     rows.append(dict(int8_row, moe_launches=moe_launches["int8_attention"],
                      train_launches=train_launches["int8_attention"]))
+    # the float32-q loop: its launches on the float32 twins' paths
+    rows.append(dict(f32_row, launches=sum(F32_TWIN_LAUNCHES.values()),
+                     twin_launches=dict(F32_TWIN_LAUNCHES),
+                     moe_launches=moe_launches["float32_attention"],
+                     train_launches=train_launches["float32_attention"]))
+    _check(all(n > 0 for n in F32_TWIN_LAUNCHES.values())
+           and len(F32_TWIN_LAUNCHES) == 3, f"every float32 twin launched "
+           f"the float32-q loop ({F32_TWIN_LAUNCHES})")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -281,19 +281,20 @@ def sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def resident_blocks(index: int, dtype: int, D: int) -> int:
+def resident_blocks(index: int, dtype: int, D: int, G: int = 8) -> int:
     """Split-kernel blocks that one SM of CUDA device ``index`` holds at
     once for operands of ``dtype`` (a ``PAGED_ATTN_DTYPES`` or
-    ``PAGED_ATTN_INT8`` code) and head
-    dim ``D``: the runtime's occupancy of the instantiation the launch
-    picks, with its registers and shared memory (asked once per process;
-    a host call, no device sync)."""
+    ``PAGED_ATTN_INT8`` code), head dim ``D`` and ``G`` query heads per kv
+    head (the float32-q kernel's instantiation depends on it): the
+    runtime's occupancy of the instantiation the launch picks, with its
+    registers and shared memory (asked once per process; a host call, no
+    device sync)."""
     fn = paged_attn_lib().paged_attn_resident_blocks
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = fn(dtype, D, ctypes.byref(blocks))
+        err = fn(dtype, D, G, ctypes.byref(blocks))
     if err or blocks.value < 1:
         raise RuntimeError(f"paged_attn_resident_blocks failed: cudaError "
                            f"{err}, {blocks.value} blocks")
@@ -335,7 +336,7 @@ def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (uint4 loads)")
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte copies)")
     if tuple(vpool.shape) != tuple(kpool.shape):
         raise ValueError(f"vpool {tuple(vpool.shape)} differs from kpool "
                          f"{tuple(kpool.shape)}")
@@ -362,7 +363,8 @@ def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float,
     code = (PAGED_ATTN_INT8 if quant else PAGED_ATTN_DTYPES)[q.dtype]
     if not splits:
         splits = paged_attn_splits(B * KVH, MAXP, sm_count(dev.index),
-                                   resident_blocks(dev.index, code, D))
+                                   resident_blocks(dev.index, code, D,
+                                                   H // KVH))
     workspace = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
                             device=dev)
     lib = paged_attn_lib()

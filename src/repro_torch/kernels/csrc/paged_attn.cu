@@ -60,17 +60,36 @@
 //   columns in shared memory.  wgmma is not used: its 64-row tile would
 //   leave 7/8 of every product idle at G = 8, and the kernel is bound by
 //   bytes, not by the tensor cores.
-// - float32: the same grid, partials and merge, with CUDA-core FMAs (TF32
-//   tensor cores would keep ~3 digits): one warp per query head, 16-token
-//   tiles staged through registers one tile ahead.
-// - int8 pools (kv_dtype "int8", q and out float32 or bfloat16): the
-//   float32 kernel's loop, each pool row read as int8 (8 bytes per lane
-//   load) with its float32 scale and dequantized while it is staged into
-//   the shared tile, float(q8) * scale rounded to q's type as the plain
-//   version's (q8.float() * scale).to(dtype), then the same float32
-//   softmax and merge.  Bound: bytes, 2 * D + 8 per live token per kv
-//   head (264 at D 128, against 512 in bf16): the pools are never
-//   dequantized in device memory.
+// - int8 pools with bfloat16 q and out (kv_dtype "int8", the serving
+//   path): the same kernel, its own instantiation.  A tile of 16 live
+//   tokens of one page (page size a multiple of 16, D a multiple of 16 up
+//   to 128: every full tile of the serving path) is four runs in the
+//   pools, its K rows, V rows and their float32 scales, each one bulk copy
+//   by lane 0 into the end of the stage's K or V area, unpadded; any other
+//   tile is staged row by row as the bf16 mode's, each lane's row into
+//   the upper half of its own padded bf16 row, with its scale (cp.async,
+//   on the same mbarrier).  Once the stage lands, each lane widens its row
+//   in place (float(q8) * scale rounded to bf16, the plain version's
+//   (q8.float() * scale).to(bfloat16); a run is read whole before any row
+//   over it is written), and the bf16 path runs unchanged.  The elements
+//   reaching the tensor cores are the dequantized ones and the tiling and
+//   order of sums are the bf16 mode's, so at a given split count the
+//   output equals the bf16 mode's on the dequantized pools bit for bit.
+//   The ring is 2 tiles deep and registers are capped for 3 blocks per SM:
+//   the route is bound by each warp's copies, widening and tensor-core
+//   work per tile, not by its bytes (more stages did not move it; four
+//   copies per tile instead of one per row, and a third block per SM, did).
+//   Bound: bytes, 2 * D + 8 per live token per kv head (264 at D 128,
+//   against 512 in bf16).
+// - float32 q (float32 pools, and int8 pools under float32 q): CUDA cores
+//   (TF32 tensor cores would keep ~3 digits), the same grid, partials and
+//   merge.  The group's query heads (up to 8) are computed together in
+//   registers: each K or V element read from shared memory feeds one FMA
+//   per head.  Each warp stages its own 8-token tiles through a 2-stage
+//   ring of bulk copies on mbarriers (no block-wide barrier in the token
+//   loop), rows padded so a quarter-warp's 8 tokens fall on distinct
+//   banks; int8 rows are dequantized as they leave the ring.  Bound:
+//   bytes, 8 * D per live token per kv head in float32.
 
 #include <cmath>
 #include <cstdint>
@@ -119,13 +138,25 @@ constexpr int kPad = 8;      // shared-memory row padding, elements
 
 __host__ __device__ constexpr int padded_d(int D) { return (D + 15) & ~15; }
 
-// [mbarriers][q rows][ring][warp states (m, l)][live masks]
+// int8: tiles per warp in the ring.  Two, not three: the smaller ring
+// lets three blocks share an SM (with the register cap below), and the
+// int8 route is bound by each warp's widening and tensor-core work per
+// tile, not by the bytes in flight
+constexpr int kStages8 = 2;
+__host__ __device__ constexpr int ring_stages(bool quant) {
+  return quant ? kStages8 : kStages;
+}
+
+// [mbarriers][q rows][ring][warp states (m, l)][live masks][int8: scales]
 constexpr int kBarBytes = 128;  // kWarps * kStages mbarriers, 8 bytes each
 static_assert(kWarps * kStages * 8 <= kBarBytes, "mbarrier area too small");
-__host__ __device__ constexpr int bf16_smem_bytes(int D) {
+static_assert(kWarps * kStages8 * 8 <= kBarBytes, "mbarrier area too small");
+__host__ __device__ constexpr int bf16_smem_bytes(int D, bool quant) {
   return kBarBytes +
-         (kRows + kStages * kWarps * 2 * kTok) * (padded_d(D) + kPad) * 2 +
-         kWarps * kRows * 8 + kWarps * kStages * 4;
+         (kRows + ring_stages(quant) * kWarps * 2 * kTok) *
+             (padded_d(D) + kPad) * 2 +
+         kWarps * kRows * 8 + kWarps * ring_stages(quant) * 4 +
+         (quant ? kWarps * kStages8 * 2 * kTok * 4 : 0);
 }
 
 // programmatic dependent launch: the merge kernel is launched while the
@@ -142,10 +173,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// mbarrier of one ring stage: one arrival (with the stage's byte count)
-// plus the bytes of its bulk copies complete a phase
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+// mbarrier of one ring stage: `count` arrivals (lane 0's, with the
+// stage's byte count, and in the int8 modes one per lane when its cp.async
+// copies land) plus the bytes of its bulk copies complete a phase
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
                : "memory");
 }
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
@@ -174,6 +207,53 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// cp.async of 4 or 8 bytes global -> shared (both addresses aligned to
+// the size); the lane's arrival on the mbarrier once its copies have landed
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// a row of `bytes` (a multiple of 8) global -> shared, completing on the
+// mbarrier: one bulk copy when `bulk` (bytes and both addresses multiples
+// of 16; the stage's expect_tx counts them), else 8-byte cp.async copies
+// (the lane's cp_async_arrive counts them)
+__device__ __forceinline__ void stage_row(unsigned char* dst, const void* src,
+                                          int bytes, bool bulk,
+                                          uint32_t bar) {
+  if (bulk) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bulk_copy(smem_u32(dst), src, bytes, bar);
+  } else {
+    for (int c = 0; c < bytes; c += 8)
+      cp_async8(smem_u32(dst + c), static_cast<const unsigned char*>(src) + c);
+  }
+}
+
+// the four int8 values of w, each exact as a float (2^23 + (v + 128) built
+// from its bits, less 2^23 + 128), times s: the plain version's
+// q8.float() * scale, rounded once
+__device__ __forceinline__ void dequant4(uint32_t w, float s, float* out) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out[i] = __fmul_rn(
+        __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)),
+                  8388736.f),
+        s);
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
@@ -215,26 +295,130 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t* hi,
                   b - __uint_as_float(*hi & 0xffff0000u));
 }
 
-// kNt: the most 8-wide dim tiles (padded D / 8) this instantiation takes
+// the D int8 values at bytes D..2D of a bf16 ring row, times s, rounded to
+// bf16 into elements 0..D of the same row, in place, in batches of up to
+// 128 bytes read before any of them is written: the batch of chunks read
+// from bytes D + w c writes bytes 2 w c, which held only chunks of this
+// batch or an earlier one (kNt: the instantiation's padded D / 8)
 template <int kNt>
-__global__ void __launch_bounds__(kWarps * 32)
-split_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
-                  const bf16* __restrict__ vpool,
+__device__ __forceinline__ void widen_row(bf16* row, int D, float s) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(row);
+  float f[8];
+  if (D % 16 == 0) {
+#pragma unroll
+    for (int c0 = 0; c0 < kNt / 2; c0 += 8) {
+      uint4 w[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (c0 + c < D / 16)
+          w[c] = *reinterpret_cast<const uint4*>(base + D + 16 * (c0 + c));
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (c0 + c < D / 16) {
+          unsigned char* out = base + 32 * (c0 + c);
+          dequant4(w[c].x, s, f);
+          dequant4(w[c].y, s, f + 4);
+          *reinterpret_cast<uint4*>(out) =
+              make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                         pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+          dequant4(w[c].z, s, f);
+          dequant4(w[c].w, s, f + 4);
+          *reinterpret_cast<uint4*>(out + 16) =
+              make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                         pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+        }
+      }
+    }
+  } else {  // D = 8 (mod 16): 8-byte chunks
+#pragma unroll
+    for (int c0 = 0; c0 < kNt; c0 += 16) {
+      uint2 w[16];
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+        if (c0 + c < D / 8)
+          w[c] = *reinterpret_cast<const uint2*>(base + D + 8 * (c0 + c));
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        if (c0 + c < D / 8) {
+          dequant4(w[c].x, s, f);
+          dequant4(w[c].y, s, f + 4);
+          *reinterpret_cast<uint4*>(base + 16 * (c0 + c)) =
+              make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                         pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+        }
+      }
+    }
+  }
+}
+
+// the same from an unpadded run of a stage's 16 rows (src: this row's D
+// int8 bytes in it, r: the row), D a multiple of 16: every lane of the warp
+// reads its whole row into registers, chunk (c + r) % (D / 16) first so the
+// 8 lanes of a quarter-warp read distinct banks, before any lane writes
+template <int kNt>
+__device__ __forceinline__ void widen_run(bf16* row, const unsigned char* src,
+                                          int D, float s, int r) {
+  const int n = D / 16;
+  const int r0 = r % n;
+  uint4 w[kNt / 2];
+#pragma unroll
+  for (int c = 0; c < kNt / 2; ++c) {
+    const int cc = c + r0 < n ? c + r0 : c + r0 - n;
+    if (c < n) w[c] = *reinterpret_cast<const uint4*>(src + 16 * cc);
+  }
+  __syncwarp();  // the run is read: the rows over it may be written
+  float f[8];
+#pragma unroll
+  for (int c = 0; c < kNt / 2; ++c) {
+    if (c < n) {
+      const int cc = c + r0 < n ? c + r0 : c + r0 - n;
+      unsigned char* out = reinterpret_cast<unsigned char*>(row) + 32 * cc;
+      dequant4(w[c].x, s, f);
+      dequant4(w[c].y, s, f + 4);
+      *reinterpret_cast<uint4*>(out) =
+          make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                     pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+      dequant4(w[c].z, s, f);
+      dequant4(w[c].w, s, f + 4);
+      *reinterpret_cast<uint4*>(out + 16) =
+          make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                     pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+    }
+  }
+}
+
+// kNt: the most 8-wide dim tiles (padded D / 8) this instantiation takes.
+// kQuant false: bf16 pools.  kQuant true: int8 pools with float32 scales
+// (kscale, vscale: one per pool row), each row staged into the upper half
+// of its bf16 ring row with its scale and widened there once the stage has
+// landed; from there the same tensor-core path.
+template <int kNt, bool kQuant>
+__global__ void __launch_bounds__(kWarps * 32, kQuant && kNt <= 16 ? 3 : 1)
+split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
+                  const void* __restrict__ vpool_,
+                  const float* __restrict__ kscale,
+                  const float* __restrict__ vscale,
                   const int32_t* __restrict__ page_table,
                   const int32_t* __restrict__ seq_lens,
                   float* __restrict__ ws_acc, float2* __restrict__ ws_ml,
                   int H, int KVH, int D, int NP, int PS, int MAXP,
                   int pages_per_split, int splits, float scale) {
+  using Pool = typename std::conditional<kQuant, int8_t, bf16>::type;
+  constexpr int kS = ring_stages(kQuant);  // ring stages
+  const Pool* kpool = static_cast<const Pool*>(kpool_);
+  const Pool* vpool = static_cast<const Pool*>(vpool_);
   extern __shared__ __align__(16) unsigned char smem[];
   const int Dp = padded_d(D);
   const int ld = Dp + kPad;
-  const uint32_t bars = smem_u32(smem);                  // [kWarps][kStages]
+  const uint32_t bars = smem_u32(smem);                  // [kWarps][kS]
   bf16* qs = reinterpret_cast<bf16*>(smem + kBarBytes);  // [kRows][ld]
-  bf16* ring = qs + kRows * ld;  // [kStages][kWarps][K, V][kTok][ld]
+  bf16* ring = qs + kRows * ld;  // [kS][kWarps][K, V][kTok][ld]
   float2* red_ml = reinterpret_cast<float2*>(
-      ring + kStages * kWarps * 2 * kTok * ld);           // [kWarps][kRows]
-  // [kWarps][kStages]: live rows of each ring stage's tile, bit per token
+      ring + kS * kWarps * 2 * kTok * ld);           // [kWarps][kRows]
+  // [kWarps][kS]: live rows of each ring stage's tile, bit per token
   unsigned* live_s = reinterpret_cast<unsigned*>(red_ml + kWarps * kRows);
+  // int8: [kWarps][kS][K, V][kTok] scales of the stage's rows
+  float* scl = reinterpret_cast<float*>(live_s + kWarps * kS);
   float* red_acc = reinterpret_cast<float*>(ring);  // [kWarps][kRows][Dp]
 
   const int b = blockIdx.x / KVH;
@@ -274,9 +458,9 @@ split_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
     const int j = tb0 + (warp + i * kWarps) * kTok + (lane & (kTok - 1));
     return j < t_end ? __ldg(pt_row + j / PS) : -1;
   };
-  int pt_first[kStages - 1];
+  int pt_first[kS - 1];
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) pt_first[st] = page_of(st);
+  for (int st = 0; st < kS - 1; ++st) pt_first[st] = page_of(st);
 
   const int len = len_raw < 0 ? 0 : min(len_raw, MAXP * PS);
   int tb, te;
@@ -292,42 +476,72 @@ split_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
   const int mine = warp < nchunks ? (nchunks - 1 - warp) / kWarps + 1 : 0;
   const int sstride = kWarps * 2 * kTok * ld;  // one stage of all warps
   bf16* my = ring + warp * 2 * kTok * ld;
-  const uint32_t my_bars = bars + warp * kStages * 8;
+  const uint32_t my_bars = bars + warp * kS * 8;
   if (lane == 0) {
-    for (int st = 0; st < kStages; ++st) mbar_init(my_bars + st * 8);
+    for (int st = 0; st < kS; ++st)
+      mbar_init(my_bars + st * 8, kQuant ? 33 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncwarp();
 
-  // this warp's i-th tile into ring stage i % kStages (pt: page_of(i)):
+  // this warp's i-th tile into ring stage i % kS (pt: page_of(i)):
   // lane r < 16 copies the K row of the tile's token r, lane 16 + r its V
-  // row, each with one bulk copy; a masked row (past the length, or of an
-  // unmapped page) is zeroed instead and never read
+  // row, each with one bulk copy (int8: into the row's upper half, with its
+  // scale; a row of D = 8 (mod 16) bytes by 8-byte cp.async); a masked row
+  // (past the length, or of an unmapped page) is zeroed instead and never
+  // read, nor is its scale.  Int8, a tile of 16 live tokens of one page
+  // (page size a multiple of 16, D a multiple of 16 up to 128): its K rows,
+  // V rows and their scales are four runs in the pools, each one bulk copy
+  // by lane 0, the rows to the end of their area of the stage, unpadded,
+  // widened from there (bit 31 of the stage's live mask)
+  const bool bulk = !kQuant || D % 16 == 0;
+  const bool runs = kQuant && kNt <= 16 && bulk && PS % kTok == 0;
+  const int run_off = kTok * ld * 2 - kTok * D;  // bytes into a K or V area
   auto issue = [&](int i, int pt) {
-    const int st = i % kStages;
+    const int st = i % kS;
     const int j = tb + (warp + i * kWarps) * kTok + (lane & (kTok - 1));
     const int prow =
         j < te && pt >= 0 && pt < NP ? (pt * KVH + h) * PS + j % PS : -1;
     const unsigned live = __ballot_sync(kFull, prow >= 0) & 0xffffu;
+    const bool whole = runs && live == 0xffffu;
     const uint32_t bar = my_bars + st * 8;
     if (lane == 0) {
-      live_s[warp * kStages + st] = live;
-      mbar_expect_tx(bar, __popc(live) * 2 * D * 2);
+      live_s[warp * kS + st] = live | (whole ? 0x80000000u : 0u);
+      mbar_expect_tx(bar, whole  ? 2 * kTok * (D + 4)
+                          : bulk ? __popc(live) * 2 * D *
+                                       static_cast<int>(sizeof(Pool))
+                                 : 0);
     }
     __syncwarp();
     bf16* dst = my + st * sstride + (lane >> 4) * kTok * ld + (lane & 15) * ld;
-    if (prow >= 0) {
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      bulk_copy(smem_u32(dst), (lane < kTok ? kpool : vpool) +
-                                   static_cast<size_t>(prow) * D,
-                D * 2, bar);
+    if (whole) {
+      if (lane == 0) {
+        unsigned char* k_run =
+            reinterpret_cast<unsigned char*>(my + st * sstride) + run_off;
+        float* sc = scl + (warp * kS + st) * 2 * kTok;
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        bulk_copy(smem_u32(k_run), kpool + static_cast<size_t>(prow) * D,
+                  kTok * D, bar);
+        bulk_copy(smem_u32(k_run + kTok * ld * 2),
+                  vpool + static_cast<size_t>(prow) * D, kTok * D, bar);
+        bulk_copy(smem_u32(sc), kscale + prow, kTok * 4, bar);
+        bulk_copy(smem_u32(sc + kTok), vscale + prow, kTok * 4, bar);
+      }
+    } else if (prow >= 0) {
+      stage_row(reinterpret_cast<unsigned char*>(dst) + (kQuant ? D : 0),
+                (lane < kTok ? kpool : vpool) + static_cast<size_t>(prow) * D,
+                D * static_cast<int>(sizeof(Pool)), bulk, bar);
+      if constexpr (kQuant)
+        cp_async4(smem_u32(scl + (warp * kS + st) * 2 * kTok + lane),
+                  (lane < kTok ? kscale : vscale) + prow);
     } else {
       for (int c = 0; c < D / 8; ++c)
         *reinterpret_cast<uint4*>(dst + c * 8) = make_uint4(0, 0, 0, 0);
     }
+    if constexpr (kQuant) cp_async_arrive(bar);
   };
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st)
+  for (int st = 0; st < kS - 1; ++st)
     if (st < mine) issue(st, pt_first[st]);
 
   // q rows of the group (zero rows past G, zero columns past D), and the
@@ -340,7 +554,7 @@ split_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
           qv[k];
   }
   if (Dp > D)
-    for (int i = threadIdx.x; i < kStages * kWarps * 2 * kTok;
+    for (int i = threadIdx.x; i < kS * kWarps * 2 * kTok;
          i += blockDim.x)
       *reinterpret_cast<uint4*>(ring + i * ld + D) = make_uint4(0, 0, 0, 0);
   __syncthreads();
@@ -363,12 +577,25 @@ split_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
 
   for (int i = 0; i < mine; ++i) {
     __syncwarp();  // every lane is done with the stage refilled here
-    if (i + kStages - 1 < mine)
-      issue(i + kStages - 1, page_of(i + kStages - 1));
-    mbar_wait(my_bars + (i % kStages) * 8, (i / kStages) & 1);  // tile i
-    const unsigned live = live_s[warp * kStages + i % kStages];
-    const bf16* ks = my + (i % kStages) * sstride;
+    if (i + kS - 1 < mine)
+      issue(i + kS - 1, page_of(i + kS - 1));
+    mbar_wait(my_bars + (i % kS) * 8, (i / kS) & 1);  // tile i
+    const unsigned live = live_s[warp * kS + i % kS];
+    const bf16* ks = my + (i % kS) * sstride;
     const bf16* vs = ks + kTok * ld;
+    if constexpr (kQuant) {  // lane r widens row r (K rows, then V rows)
+      bf16* row = my + (i % kS) * sstride + lane * ld;
+      const float sc = scl[(warp * kS + i % kS) * 2 * kTok + lane];
+      if (live >> 31)
+        widen_run<kNt>(row,
+                       reinterpret_cast<const unsigned char*>(
+                           ks + (lane >> 4) * kTok * ld) +
+                           run_off + (lane & (kTok - 1)) * D,
+                       D, sc, lane & (kTok - 1));
+      else if (live >> (lane & (kTok - 1)) & 1u)
+        widen_row<kNt>(row, D, sc);
+      __syncwarp();
+    }
 
     // S (16 heads x 16 tokens) = q K^T, two 8-token n tiles
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -486,55 +713,51 @@ split_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ kpool,
 }
 
 // ---------------------------------------------------------------------------
-// float32 pools, and int8 pools: CUDA cores, one warp per query head
+// float32 q (float32 pools, or int8 pools): CUDA cores, register-tiled
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Heads = 8;
-constexpr int kF32Threads = kF32Heads * 32;
-constexpr int kF32Tile = 16;  // tokens per tile, two lanes per token
+constexpr int kCcTok = 8;             // tokens per warp tile
+constexpr int kCcStages = 2;          // tiles per warp in the ring
+constexpr int kCcCols = kMaxD / 128;  // float4 column chunks per lane in P V
 
-// dot of 4 floats (one uint4) with the matching floats of q
-__device__ __forceinline__ float dot4(uint4 k, const float* q) {
-  float s = __uint_as_float(k.x) * q[0];
-  s = fmaf(__uint_as_float(k.y), q[1], s);
-  s = fmaf(__uint_as_float(k.z), q[2], s);
-  return fmaf(__uint_as_float(k.w), q[3], s);
+// a ring row, bytes: an odd number of 16-byte units, so that the 8 tokens
+// one quarter-warp reads at one column fall on distinct banks (float: D + 4
+// floats, D / 4 being even; int8: D bytes rounded up to an odd count)
+__host__ __device__ constexpr int cc_row_bytes(int D, bool quant) {
+  return quant ? 16 * (((D + 15) / 16) | 1) : 4 * (D + 4);
+}
+// the ring, reused at the end for the warps' accumulators
+__host__ __device__ constexpr int cc_ring_bytes(int D, int kG, bool quant) {
+  return kWarps * kCcStages * 2 * kCcTok * cc_row_bytes(D, quant) >
+                 kWarps * kG * D * 4
+             ? kWarps * kCcStages * 2 * kCcTok * cc_row_bytes(D, quant)
+             : kWarps * kG * D * 4;
+}
+// [mbarriers][q rows][ring][int8: scales][p][warp states (m, l)][live]
+__host__ __device__ constexpr int cc_smem_bytes(int D, int kG, bool quant) {
+  return kBarBytes + kG * D * 4 + cc_ring_bytes(D, kG, quant) +
+         (quant ? kWarps * kCcStages * 2 * kCcTok * 4 : 0) +
+         kWarps * kG * kCcTok * 4 + kWarps * kG * 8 + kWarps * kCcStages * 4;
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
-// x rounded to T and widened back: a dequantized element in q's type
-template <typename T>
-__device__ __forceinline__ float round_as(float x);
-template <>
-__device__ __forceinline__ float round_as<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_as<bf16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));  // nearest even, as torch
-}
-
-// eight int8 values times their row's scale, each rounded to T: the plain
-// version's (q8.float() * scale).to(T)
-template <typename T>
-__device__ __forceinline__ void dequant8(uint2 w, float s, float* out) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&w);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = round_as<T>(static_cast<float>(b[i]) * s);
-}
-
-// q and out of type T.  kQuant false: float pools (T is float), rows read
-// 16 bytes (4 values) at a time.  kQuant true: int8 pools with a float32
-// scale per (token, head) row, rows read 8 bytes (8 values) at a time and
-// dequantized into the shared tile as they are staged, so each live
-// token's K and V bytes and two scales are read once and nothing is
-// written back.
-template <typename T, bool kQuant>
-__global__ void __launch_bounds__(kF32Threads)
-split_kernel_cc(const T* __restrict__ q, const void* __restrict__ kpool_,
-                const void* __restrict__ vpool_,
+// kG: the query heads one block computes together (grid z covers G in
+// groups of kG).  kQuant false: float32 pools; true: int8 pools with their
+// float32 scales, each element dequantized as it leaves the ring.  Each of
+// the 4 warps runs its own online softmax over its own 8-token tiles (tile
+// k of the block to warp k % 4), staged through its own 2-stage ring by
+// bulk copies (int8 rows of D = 8 (mod 16) bytes, and the scales, by
+// cp.async) on one mbarrier per stage: no block-wide barrier in the token
+// loop.  Scores: lane (sub, tok) = (lane / 8, lane % 8) takes token tok's
+// 4-column chunks sub, sub + 4, ... and keeps kG sums, each K element
+// feeding kG FMAs (q read from shared memory, one address per quarter-
+// warp); the four subs are summed by two shuffles.  P V: lane c owns
+// columns 4c..4c+3 (and 128 + 4c.. at D > 128) of every head, an acc[kG][4]
+// fragment per chunk, each V element feeding kG FMAs with P broadcast from
+// shared memory.  The warps' states are merged through shared memory.
+template <int kG, bool kQuant>
+__global__ void __launch_bounds__(kWarps * 32)
+split_kernel_cc(const float* __restrict__ q, const void* __restrict__ kpool,
+                const void* __restrict__ vpool,
                 const float* __restrict__ kscale,
                 const float* __restrict__ vscale,
                 const int32_t* __restrict__ page_table,
@@ -542,169 +765,264 @@ split_kernel_cc(const T* __restrict__ q, const void* __restrict__ kpool_,
                 float* __restrict__ ws_acc, float2* __restrict__ ws_ml,
                 int H, int KVH, int D, int NP, int PS, int MAXP,
                 int pages_per_split, int splits, float scale) {
-  using Pool = typename std::conditional<kQuant, int8_t, float>::type;
-  using Chunk = typename std::conditional<kQuant, uint2, uint4>::type;
-  constexpr int kPer = sizeof(Chunk) / sizeof(Pool);  // values per chunk
-  constexpr int kDimsPerLane = kMaxD / 32;
-  // chunk loads per thread per tensor per tile: at most 4 (float), 2 (int8)
-  constexpr int kLoads = kF32Tile * kMaxD / kPer / kF32Threads;
-  const Pool* kpool = static_cast<const Pool*>(kpool_);
-  const Pool* vpool = static_cast<const Pool*>(vpool_);
-  __shared__ __align__(16) float ks[kF32Tile * (kMaxD + kPad)];
-  __shared__ __align__(16) float vs[kF32Tile * (kMaxD + kPad)];
-  __shared__ __align__(16) float qs[kF32Heads * kMaxD];
-  __shared__ int live[kF32Tile];  // row of the tile is mapped and below te
-  griddep_launch_dependents();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rb = cc_row_bytes(D, kQuant);
+  const int pbytes = kQuant ? D : 4 * D;  // bytes of a pool row
+  const uint32_t bars = smem_u32(smem);   // [kWarps][kCcStages]
+  float* qs = reinterpret_cast<float*>(smem + kBarBytes);  // [kG][D]
+  // [kCcStages][kWarps][K, V][kCcTok][rb bytes]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(qs + kG * D);
+  // int8: [kWarps][kCcStages][K, V][kCcTok] scales of the stage's rows
+  float* scl = reinterpret_cast<float*>(ring + cc_ring_bytes(D, kG, kQuant));
+  // [kWarps][kG][kCcTok]: p of the warp's tile
+  float* ps = scl + (kQuant ? kWarps * kCcStages * 2 * kCcTok : 0);
+  float2* red_ml = reinterpret_cast<float2*>(ps + kWarps * kG * kCcTok);
+  unsigned* live_s = reinterpret_cast<unsigned*>(red_ml + kWarps * kG);
+  float* red_acc = reinterpret_cast<float*>(ring);  // [kWarps][kG][D]
 
   const int b = blockIdx.x / KVH;
   const int h = blockIdx.x % KVH;
   const int split = blockIdx.y;
   const int G = H / KVH;
+  const int g0 = blockIdx.z * kG;
+  const int rows = min(kG, G - g0);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int g0 = blockIdx.z * kF32Heads;
-  const bool active = g0 + warp < G;  // uniform across the warp
   const size_t row0 = static_cast<size_t>(b) * H + h * G + g0;
-  const int vpr = D / 4;               // uint4 of floats per shared row
-  const int cpr = D / kPer;            // chunks per pool row
-  const int ws = (D + kPad) / 4;       // padded row stride, in uint4
-  const int32_t* pt_row = page_table + static_cast<size_t>(b) * MAXP;
 
-  for (int i = threadIdx.x; i < kF32Heads * D; i += kF32Threads) {
-    const int w = i / D;
-    qs[w * kMaxD + i % D] =
-        g0 + w < G ? to_float(q[(row0 + w) * D + i % D]) : 0.f;
-  }
-  int len = seq_lens[b];
-  len = len < 0 ? 0 : (len > MAXP * PS ? MAXP * PS : len);
+  griddep_launch_dependents();  // the merge may launch and wait for us
+
+  // the length and the warp's first page id together (speculative: the
+  // split's range and the table row bound it, the length masks it below)
+  const int len_raw = seq_lens[b];
+  const int32_t* pt_row = page_table + static_cast<size_t>(b) * MAXP;
+  const int tb0 = static_cast<int>(
+      min(static_cast<long long>(split) * pages_per_split * PS,
+          static_cast<long long>(MAXP) * PS));
+  const int t_end = min(tb0 + pages_per_split * PS, MAXP * PS);
+  // page id of the lane's token (lane % 8) in this warp's i-th tile
+  auto page_of = [&](int i) {
+    const int j = tb0 + (warp + i * kWarps) * kCcTok + (lane & (kCcTok - 1));
+    return j < t_end ? __ldg(pt_row + j / PS) : -1;
+  };
+  const int pt_first = page_of(0);
+
+  const int len = len_raw < 0 ? 0 : min(len_raw, MAXP * PS);
   int tb, te;
   split_tokens(split, pages_per_split, PS, len, &tb, &te);
+  if (te <= tb) {  // nothing live in this split
+    if (static_cast<int>(threadIdx.x) < rows)
+      ws_ml[(row0 + threadIdx.x) * splits + split] =
+          make_float2(-INFINITY, 0.f);
+    return;
+  }
 
-  // -- registers one tile ahead ---------------------------------------------
-  Chunk kr[kLoads], vr[kLoads];
-  float ksr[kLoads], vsr[kLoads];  // the rows' scales (int8 pools)
-  unsigned loaded = 0;  // bit k: kr[k]/vr[k] hold a live row's chunk
-  auto issue = [&](int t0) {
-    const int n = min(kF32Tile, te - t0);
-    loaded = 0;
-#pragma unroll
-    for (int k = 0; k < kLoads; ++k) {
-      const int i = threadIdx.x + k * kF32Threads;
-      const int r = i / cpr;
-      if (r < n) {
-        const int j = t0 + r;
-        const int pt = __ldg(pt_row + j / PS);
-        if (pt >= 0 && pt < NP) {
-          const size_t row =
-              (static_cast<size_t>(pt) * KVH + h) * PS + j % PS;
-          const int c = i - r * cpr;
-          kr[k] = __ldg(reinterpret_cast<const Chunk*>(kpool + row * D) + c);
-          vr[k] = __ldg(reinterpret_cast<const Chunk*>(vpool + row * D) + c);
-          if constexpr (kQuant) {
-            ksr[k] = __ldg(kscale + row);
-            vsr[k] = __ldg(vscale + row);
-          }
-          loaded |= 1u << k;
-        }
-      }
+  const int nchunks = (te - tb + kCcTok - 1) / kCcTok;
+  const int mine = warp < nchunks ? (nchunks - 1 - warp) / kWarps + 1 : 0;
+  const int tile_bytes = 2 * kCcTok * rb;
+  const int sstride = kWarps * tile_bytes;  // one stage of all warps
+  unsigned char* my = ring + warp * tile_bytes;
+  const uint32_t my_bars = bars + warp * kCcStages * 8;
+  float* my_scl = scl + warp * kCcStages * 2 * kCcTok;
+  if (lane == 0) {
+    for (int st = 0; st < kCcStages; ++st)
+      mbar_init(my_bars + st * 8, kQuant ? 33 : 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+
+  // this warp's i-th tile into ring stage i % kCcStages (pt: page_of(i)):
+  // lane r < 8 copies the K row of the tile's token r, lane 8 + r its V
+  // row (int8: with its scale); a masked row (past the length, or of an
+  // unmapped page) is neither copied nor read, nor is its scale
+  const bool bulk = !kQuant || D % 16 == 0;
+  auto issue = [&](int i, int pt) {
+    const int st = i % kCcStages;
+    const int j = tb + (warp + i * kWarps) * kCcTok + (lane & (kCcTok - 1));
+    const int prow = lane < 2 * kCcTok && j < te && pt >= 0 && pt < NP
+                         ? (pt * KVH + h) * PS + j % PS
+                         : -1;
+    const unsigned live = __ballot_sync(kFull, prow >= 0) & 0xffu;
+    const uint32_t bar = my_bars + st * 8;
+    if (lane == 0) {
+      live_s[warp * kCcStages + st] = live;
+      mbar_expect_tx(bar, bulk ? __popc(live) * 2 * pbytes : 0);
     }
+    __syncwarp();
+    if (prow >= 0) {
+      const unsigned char* pool = static_cast<const unsigned char*>(
+          lane < kCcTok ? kpool : vpool);
+      stage_row(my + st * sstride + lane * rb,
+                pool + static_cast<size_t>(prow) * pbytes, pbytes, bulk, bar);
+      if constexpr (kQuant)
+        cp_async4(smem_u32(my_scl + st * 2 * kCcTok + lane),
+                  (lane < kCcTok ? kscale : vscale) + prow);
+    }
+    if constexpr (kQuant) cp_async_arrive(bar);
   };
+  if (mine > 0) issue(0, pt_first);
 
-  uint4* k4 = reinterpret_cast<uint4*>(ks);
-  uint4* v4 = reinterpret_cast<uint4*>(vs);
-  const float* qw = qs + warp * kMaxD;
-  const int tok = lane % kF32Tile;
-  const int part = lane / kF32Tile;
+  // the group's q rows (zero rows past G)
+  for (int i = threadIdx.x; i < kG * D; i += kWarps * 32)
+    qs[i] = i / D < rows ? q[row0 * D + i] : 0.f;
+  __syncthreads();
 
-  float acc[kDimsPerLane];
+  const int sub = lane >> 3, tok = lane & (kCcTok - 1);
+  const int nc = D / 4;  // 4-column chunks of a row
+  float acc[kG][kCcCols][4];
+  float m[kG], lp[kG];  // running max; this lane's share of the running sum
 #pragma unroll
-  for (int i = 0; i < kDimsPerLane; ++i) acc[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  if (tb < te) issue(tb);
-  for (int t0 = tb; t0 < te; t0 += kF32Tile) {
-    const int n = min(kF32Tile, te - t0);
+  for (int g = 0; g < kG; ++g) {
+    m[g] = -INFINITY;
+    lp[g] = 0.f;
 #pragma unroll
-    for (int k = 0; k < kLoads; ++k) {
-      if (loaded >> k & 1u) {
-        const int i = threadIdx.x + k * kF32Threads;
-        const int r = i / cpr;
-        const int c = i - r * cpr;
-        if constexpr (kQuant) {
-          dequant8<T>(kr[k], ksr[k], ks + r * ws * 4 + c * kPer);
-          dequant8<T>(vr[k], vsr[k], vs + r * ws * 4 + c * kPer);
-        } else {
-          k4[r * ws + c] = kr[k];
-          v4[r * ws + c] = vr[k];
-        }
+    for (int hh = 0; hh < kCcCols; ++hh)
+      acc[g][hh][0] = acc[g][hh][1] = acc[g][hh][2] = acc[g][hh][3] = 0.f;
+  }
+  float* my_ps = ps + warp * kG * kCcTok;
+
+  for (int i = 0; i < mine; ++i) {
+    __syncwarp();  // every lane is done with the stage refilled here
+    if (i + 1 < mine) issue(i + 1, page_of(i + 1));
+    const int st = i % kCcStages;
+    mbar_wait(my_bars + st * 8, (i / kCcStages) & 1);  // tile i
+    const unsigned live = live_s[warp * kCcStages + st];
+    const unsigned char* kt = my + st * sstride;
+    const unsigned char* vt = kt + kCcTok * rb;
+
+    // scores of token tok over its chunks sub, sub + 4, ...
+    float s[kG];
+#pragma unroll
+    for (int g = 0; g < kG; ++g) s[g] = 0.f;
+    const float ksc = kQuant ? my_scl[st * 2 * kCcTok + tok] : 0.f;
+    for (int c = sub; c < nc; c += 4) {
+      float k[4];
+      if constexpr (kQuant) {
+        dequant4(*reinterpret_cast<const uint32_t*>(kt + tok * rb + 4 * c),
+                 ksc, k);
+      } else {
+        const float4 k4 =
+            *reinterpret_cast<const float4*>(kt + tok * rb + 16 * c);
+        k[0] = k4.x, k[1] = k4.y, k[2] = k4.z, k[3] = k4.w;
+      }
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qs + g * D + 4 * c);
+        s[g] = fmaf(k[0], q4.x, s[g]);
+        s[g] = fmaf(k[1], q4.y, s[g]);
+        s[g] = fmaf(k[2], q4.z, s[g]);
+        s[g] = fmaf(k[3], q4.w, s[g]);
       }
     }
-    if (threadIdx.x < kF32Tile) {
-      int ok = 0;
-      if (static_cast<int>(threadIdx.x) < n) {
-        const int pt = __ldg(pt_row + (t0 + threadIdx.x) / PS);
-        ok = pt >= 0 && pt < NP;
+    // online softmax of each head over the tile's 8 tokens
+    const bool on = live >> tok & 1u;
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      s[g] += __shfl_xor_sync(kFull, s[g], 8);
+      s[g] += __shfl_xor_sync(kFull, s[g], 16);
+      s[g] = on ? s[g] * scale : -INFINITY;
+      float mx = fmaxf(s[g], __shfl_xor_sync(kFull, s[g], 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 4));
+      const float mn = fmaxf(m[g], mx);
+      const float base = mn == -INFINITY ? 0.f : mn;  // all masked: p = 0
+      const float alpha = expf(m[g] - base);
+      m[g] = mn;
+      const float p = expf(s[g] - base);
+      lp[g] = lp[g] * alpha + (sub == 0 ? p : 0.f);
+#pragma unroll
+      for (int hh = 0; hh < kCcCols; ++hh) {
+        acc[g][hh][0] *= alpha;
+        acc[g][hh][1] *= alpha;
+        acc[g][hh][2] *= alpha;
+        acc[g][hh][3] *= alpha;
       }
-      live[threadIdx.x] = ok;
+      if (sub == 0) my_ps[g * kCcTok + tok] = p;
     }
-    __syncthreads();
-    if (t0 + kF32Tile < te) issue(t0 + kF32Tile);  // in flight during math
-    if (active) {
-      // scores: two lanes per token, combined by one shuffle
-      float s = 0.f;
-      for (int c = part; c < vpr; c += 2)
-        s += dot4(k4[tok * ws + c], qw + c * 4);
-      s += __shfl_xor_sync(kFull, s, 16);
-      s = live[tok] ? s * scale : -INFINITY;
-      const float m_new = fmaxf(m, warp_max(s));
-      if (m_new != -INFINITY) {  // else the tile and all before are masked
-        const float alpha = expf(m - m_new);
-        const float p = s == -INFINITY ? 0.f : expf(s - m_new);
-        l = l * alpha + warp_sum(part == 0 ? p : 0.f);
+    __syncwarp();
+
+    // P V over the tile's live tokens (a masked row is never read)
 #pragma unroll
-        for (int i = 0; i < kDimsPerLane; ++i) acc[i] *= alpha;
-        for (int r = 0; r < n; ++r) {
-          const float pr = __shfl_sync(kFull, p, r);
-          if (pr > 0.f) {  // masked rows hold stale shared memory
-            const float* vrow = vs + r * ws * 4;
+    for (int t0 = 0; t0 < kCcTok; t0 += 4) {
+      if (!(live >> t0 & 0xfu)) continue;
+      float4 pv[kG];
 #pragma unroll
-            for (int i = 0; i < kDimsPerLane; ++i) {
-              const int d = lane + 32 * i;
-              if (d < D) acc[i] = fmaf(pr, vrow[d], acc[i]);
+      for (int g = 0; g < kG; ++g)
+        pv[g] = *reinterpret_cast<const float4*>(my_ps + g * kCcTok + t0);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (!(live >> (t0 + u) & 1u)) continue;
+        const unsigned char* vrow = vt + (t0 + u) * rb;
+        const float vsc =
+            kQuant ? my_scl[st * 2 * kCcTok + kCcTok + t0 + u] : 0.f;
+#pragma unroll
+        for (int hh = 0; hh < kCcCols; ++hh) {
+          const int c = lane + 32 * hh;
+          if (c < nc) {
+            float v[4];
+            if constexpr (kQuant) {
+              dequant4(*reinterpret_cast<const uint32_t*>(vrow + 4 * c), vsc,
+                       v);
+            } else {
+              const float4 v4 =
+                  *reinterpret_cast<const float4*>(vrow + 16 * c);
+              v[0] = v4.x, v[1] = v4.y, v[2] = v4.z, v[3] = v4.w;
+            }
+#pragma unroll
+            for (int g = 0; g < kG; ++g) {
+              const float p = u == 0   ? pv[g].x
+                              : u == 1 ? pv[g].y
+                              : u == 2 ? pv[g].z
+                                       : pv[g].w;
+              acc[g][hh][0] = fmaf(p, v[0], acc[g][hh][0]);
+              acc[g][hh][1] = fmaf(p, v[1], acc[g][hh][1]);
+              acc[g][hh][2] = fmaf(p, v[2], acc[g][hh][2]);
+              acc[g][hh][3] = fmaf(p, v[3], acc[g][hh][3]);
             }
           }
         }
-        m = m_new;
       }
     }
-    __syncthreads();
   }
 
-  if (active) {
-    const size_t o = (row0 + warp) * splits + split;
+  // merge the warps' states through shared memory (the ring is free now)
 #pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) ws_acc[o * D + d] = acc[i];
+  for (int g = 0; g < kG; ++g) lp[g] = warp_sum(lp[g]);
+  __syncthreads();
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < kG; ++g)
+      red_ml[warp * kG + g] = make_float2(m[g], lp[g]);
+#pragma unroll
+  for (int g = 0; g < kG; ++g)
+#pragma unroll
+    for (int hh = 0; hh < kCcCols; ++hh) {
+      const int c = lane + 32 * hh;
+      if (c < nc)
+        *reinterpret_cast<float4*>(red_acc + (warp * kG + g) * D + 4 * c) =
+            make_float4(acc[g][hh][0], acc[g][hh][1], acc[g][hh][2],
+                        acc[g][hh][3]);
     }
-    if (lane == 0) ws_ml[o] = make_float2(m, l);
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * D; i += kWarps * 32) {
+    const int r = i / D, d = i % D;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, red_ml[w * kG + r].x);
+    float a = 0.f, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float2 ml = red_ml[w * kG + r];
+      if (ml.x != -INFINITY) {
+        const float e = expf(ml.x - M);
+        a = fmaf(e, red_acc[(w * kG + r) * D + d], a);
+        L = fmaf(e, ml.y, L);
+      }
+    }
+    const size_t o = (row0 + r) * splits + split;
+    ws_acc[o * D + d] = a;
+    if (d == 0) ws_ml[o] = make_float2(M, L);
   }
-}
-
-template <typename T, bool kQuant>
-cudaError_t launch_cc(const void* q, const void* kpool, const void* vpool,
-                      const float* kscale, const float* vscale,
-                      const int32_t* pt, const int32_t* lens, float* ws_acc,
-                      float2* ws_ml, int B, int H, int KVH, int D, int NP,
-                      int PS, int MAXP, int pps, int splits, float scale,
-                      cudaStream_t stream) {
-  const int G = H / KVH;
-  split_kernel_cc<T, kQuant><<<dim3(B * KVH, splits,
-                                    (G + kF32Heads - 1) / kF32Heads),
-                               kF32Threads, 0, stream>>>(
-      static_cast<const T*>(q), kpool, vpool, kscale, vscale, pt, lens,
-      ws_acc, ws_ml, H, KVH, D, NP, PS, MAXP, pps, splits, scale);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -795,72 +1113,160 @@ cudaError_t launch_merge(const float* ws_acc, const float2* ws_ml, void* out,
                             static_cast<T*>(out), D, splits);
 }
 
-// the bf16 split kernel for padded D <= 8 * kNt, allowed the shared memory
-// of head dim D on the current device
-template <int kNt>
+// the bf16 split kernel (kQuant: over int8 pools) for padded D <= 8 * kNt,
+// allowed the shared memory of head dim D on the current device
+template <int kNt, bool kQuant>
 cudaError_t ready_bf16(int D) {
   static int allowed[64];
-  return allow_smem(split_kernel_bf16<kNt>, bf16_smem_bytes(D), allowed);
+  return allow_smem(split_kernel_bf16<kNt, kQuant>,
+                    bf16_smem_bytes(D, kQuant), allowed);
 }
 
-template <int kNt>
+template <int kNt, bool kQuant>
 cudaError_t resident_bf16(int D, int* blocks) {
-  const cudaError_t err = ready_bf16<kNt>(D);
+  const cudaError_t err = ready_bf16<kNt, kQuant>(D);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, split_kernel_bf16<kNt>, kWarps * 32, bf16_smem_bytes(D));
+      blocks, split_kernel_bf16<kNt, kQuant>, kWarps * 32,
+      bf16_smem_bytes(D, kQuant));
 }
 
-template <int kNt>
+template <bool kQuant>
+cudaError_t resident_bf16_d(int D, int* blocks) {
+  const int Dp = padded_d(D);
+  return Dp <= 64    ? resident_bf16<8, kQuant>(D, blocks)
+         : Dp <= 128 ? resident_bf16<16, kQuant>(D, blocks)
+                     : resident_bf16<32, kQuant>(D, blocks);
+}
+
+template <int kNt, bool kQuant>
 cudaError_t launch_bf16(const void* q, const void* kpool, const void* vpool,
+                        const float* kscale, const float* vscale,
                         const int32_t* pt, const int32_t* lens, float* ws_acc,
                         float2* ws_ml, int B, int H, int KVH, int D, int NP,
                         int PS, int MAXP, int pps, int splits, float scale,
                         cudaStream_t stream) {
-  const int bytes = bf16_smem_bytes(D);
-  const cudaError_t err = ready_bf16<kNt>(D);
+  const int bytes = bf16_smem_bytes(D, kQuant);
+  const cudaError_t err = ready_bf16<kNt, kQuant>(D);
   if (err != cudaSuccess) return err;
   const int G = H / KVH;
   const dim3 grid(B * KVH, splits, (G + kRows - 1) / kRows);
-  split_kernel_bf16<kNt><<<grid, kWarps * 32, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kpool),
-      static_cast<const bf16*>(vpool), pt, lens, ws_acc, ws_ml, H, KVH, D, NP,
-      PS, MAXP, pps, splits, scale);
+  split_kernel_bf16<kNt, kQuant><<<grid, kWarps * 32, bytes, stream>>>(
+      static_cast<const bf16*>(q), kpool, vpool, kscale, vscale, pt, lens,
+      ws_acc, ws_ml, H, KVH, D, NP, PS, MAXP, pps, splits, scale);
   return cudaGetLastError();
+}
+
+template <bool kQuant>
+cudaError_t launch_bf16_d(const void* q, const void* kpool, const void* vpool,
+                          const float* kscale, const float* vscale,
+                          const int32_t* pt, const int32_t* lens,
+                          float* ws_acc, float2* ws_ml, int B, int H, int KVH,
+                          int D, int NP, int PS, int MAXP, int pps, int splits,
+                          float scale, cudaStream_t stream) {
+  const int Dp = padded_d(D);
+  return Dp <= 64 ? launch_bf16<8, kQuant>(
+                        q, kpool, vpool, kscale, vscale, pt, lens, ws_acc,
+                        ws_ml, B, H, KVH, D, NP, PS, MAXP, pps, splits, scale,
+                        stream)
+         : Dp <= 128
+             ? launch_bf16<16, kQuant>(q, kpool, vpool, kscale, vscale, pt,
+                                       lens, ws_acc, ws_ml, B, H, KVH, D, NP,
+                                       PS, MAXP, pps, splits, scale, stream)
+             : launch_bf16<32, kQuant>(q, kpool, vpool, kscale, vscale, pt,
+                                       lens, ws_acc, ws_ml, B, H, KVH, D, NP,
+                                       PS, MAXP, pps, splits, scale, stream);
+}
+
+// the float32-q split kernel of kG heads per block, allowed the shared
+// memory of head dim D on the current device
+template <int kG, bool kQuant>
+cudaError_t ready_cc(int D) {
+  static int allowed[64];
+  return allow_smem(split_kernel_cc<kG, kQuant>, cc_smem_bytes(D, kG, kQuant),
+                    allowed);
+}
+
+template <int kG, bool kQuant>
+cudaError_t resident_cc(int D, int* blocks) {
+  const cudaError_t err = ready_cc<kG, kQuant>(D);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, split_kernel_cc<kG, kQuant>, kWarps * 32,
+      cc_smem_bytes(D, kG, kQuant));
+}
+
+template <int kG, bool kQuant>
+cudaError_t launch_cc(const void* q, const void* kpool, const void* vpool,
+                      const float* kscale, const float* vscale,
+                      const int32_t* pt, const int32_t* lens, float* ws_acc,
+                      float2* ws_ml, int B, int H, int KVH, int D, int NP,
+                      int PS, int MAXP, int pps, int splits, float scale,
+                      cudaStream_t stream) {
+  const int bytes = cc_smem_bytes(D, kG, kQuant);
+  const cudaError_t err = ready_cc<kG, kQuant>(D);
+  if (err != cudaSuccess) return err;
+  const int G = H / KVH;
+  const dim3 grid(B * KVH, splits, (G + kG - 1) / kG);
+  split_kernel_cc<kG, kQuant><<<grid, kWarps * 32, bytes, stream>>>(
+      static_cast<const float*>(q), kpool, vpool, kscale, vscale, pt, lens,
+      ws_acc, ws_ml, H, KVH, D, NP, PS, MAXP, pps, splits, scale);
+  return cudaGetLastError();
+}
+
+// heads per block of the float32-q kernel for G query heads per kv head:
+// the least of 1, 2, 4, 8 that holds G, 8 past it (groups of 8)
+int cc_heads(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8; }
+
+template <bool kQuant>
+cudaError_t resident_cc_g(int G, int D, int* blocks) {
+  switch (cc_heads(G)) {
+    case 1: return resident_cc<1, kQuant>(D, blocks);
+    case 2: return resident_cc<2, kQuant>(D, blocks);
+    case 4: return resident_cc<4, kQuant>(D, blocks);
+    default: return resident_cc<8, kQuant>(D, blocks);
+  }
+}
+
+template <bool kQuant>
+cudaError_t launch_cc_g(const void* q, const void* kpool, const void* vpool,
+                        const float* kscale, const float* vscale,
+                        const int32_t* pt, const int32_t* lens, float* ws_acc,
+                        float2* ws_ml, int B, int H, int KVH, int D, int NP,
+                        int PS, int MAXP, int pps, int splits, float scale,
+                        cudaStream_t stream) {
+  auto go = [&](auto kernel_launch) {
+    return kernel_launch(q, kpool, vpool, kscale, vscale, pt, lens, ws_acc,
+                         ws_ml, B, H, KVH, D, NP, PS, MAXP, pps, splits,
+                         scale, stream);
+  };
+  switch (cc_heads(H / KVH)) {
+    case 1: return go(launch_cc<1, kQuant>);
+    case 2: return go(launch_cc<2, kQuant>);
+    case 4: return go(launch_cc<4, kQuant>);
+    default: return go(launch_cc<8, kQuant>);
+  }
 }
 
 }  // namespace
 
 // Blocks of the split kernel that one SM of the current device holds at
-// once, for operands of `dtype` (as below) and head dim D: the occupancy of
-// the instantiation paged_attn_launch picks, with its shared memory,
-// written to *blocks.  The host sizes one wave of splits from it.  Returns
-// the cudaError_t (0 on success).
-extern "C" int paged_attn_resident_blocks(int dtype, int D, int* blocks) {
-  if (D <= 0 || D > kMaxD || D % 8)
+// once, for operands of `dtype` (as below), head dim D and G query heads
+// per kv head: the occupancy of the instantiation paged_attn_launch picks,
+// with its registers and shared memory, written to *blocks.  The host
+// sizes one wave of splits from it.  Returns the cudaError_t (0 on
+// success).
+extern "C" int paged_attn_resident_blocks(int dtype, int D, int G,
+                                          int* blocks) {
+  if (D <= 0 || D > kMaxD || D % 8 || G <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int Dp = padded_d(D);
   cudaError_t err;
   switch (dtype) {
-    case 0:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, split_kernel_cc<float, false>, kF32Threads, 0);
-      break;
-    case 1:
-      err = Dp <= 64    ? resident_bf16<8>(D, blocks)
-            : Dp <= 128 ? resident_bf16<16>(D, blocks)
-                        : resident_bf16<32>(D, blocks);
-      break;
-    case 2:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, split_kernel_cc<float, true>, kF32Threads, 0);
-      break;
-    case 3:
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          blocks, split_kernel_cc<bf16, true>, kF32Threads, 0);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 0: err = resident_cc_g<false>(G, D, blocks); break;
+    case 1: err = resident_bf16_d<false>(D, blocks); break;
+    case 2: err = resident_cc_g<true>(G, D, blocks); break;
+    case 3: err = resident_bf16_d<true>(D, blocks); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
 }
@@ -868,7 +1274,8 @@ extern "C" int paged_attn_resident_blocks(int dtype, int D, int* blocks) {
 // dtype: 0 float32, 1 bfloat16 (q, both pools and out); 2 float32 q and
 // out over int8 pools, 3 bfloat16 q and out over int8 pools, each int8
 // pool with its float32 scales (kscale, vscale: one per pool row, null
-// for dtypes 0 and 1).  splits: 1 to kMaxSplits.  workspace: float32
+// for dtypes 0 and 1).  Dtypes 0 and 2 run the CUDA-core kernel, 1 and 3
+// the tensor-core one.  splits: 1 to kMaxSplits.  workspace: float32
 // scratch of B * H * splits * (D + 2) values (the splits' acc, then their
 // (m, l) pairs).  Launches the split kernel and the merge on `stream`;
 // returns the cudaError_t of the launches (0 on success).
@@ -899,46 +1306,23 @@ extern "C" int paged_attn_launch(int dtype, const void* q, const void* kpool,
   switch (dtype) {
     case 0:
     case 2:
-      err = dtype == 0
-                ? launch_cc<float, false>(q, kpool, vpool, nullptr, nullptr,
-                                          pt, lens, ws_acc, ws_ml, B, H, KVH,
-                                          D, NP, PS, MAXP, pps, splits, scale,
-                                          s)
-                : launch_cc<float, true>(q, kpool, vpool, kss, vss, pt, lens,
-                                         ws_acc, ws_ml, B, H, KVH, D, NP, PS,
-                                         MAXP, pps, splits, scale, s);
+      err = (dtype == 2 ? launch_cc_g<true> : launch_cc_g<false>)(
+          q, kpool, vpool, kss, vss, pt, lens, ws_acc, ws_ml, B, H, KVH, D,
+          NP, PS, MAXP, pps, splits, scale, s);
       if (err != cudaSuccess) return static_cast<int>(err);
       err = launch_merge<float>(ws_acc, ws_ml, out, BH, D, splits, s);
-      if (err != cudaSuccess) return static_cast<int>(err);
       break;
+    case 1:
     case 3:
-      err = launch_cc<bf16, true>(q, kpool, vpool, kss, vss, pt, lens,
-                                  ws_acc, ws_ml, B, H, KVH, D, NP, PS, MAXP,
-                                  pps, splits, scale, s);
+      err = (dtype == 3 ? launch_bf16_d<true> : launch_bf16_d<false>)(
+          q, kpool, vpool, kss, vss, pt, lens, ws_acc, ws_ml, B, H, KVH, D,
+          NP, PS, MAXP, pps, splits, scale, s);
       if (err != cudaSuccess) return static_cast<int>(err);
       err = launch_merge<bf16>(ws_acc, ws_ml, out, BH, D, splits, s);
-      if (err != cudaSuccess) return static_cast<int>(err);
       break;
-    case 1: {
-      const int Dp = padded_d(D);
-      err = Dp <= 64
-                ? launch_bf16<8>(q, kpool, vpool, pt, lens, ws_acc, ws_ml, B,
-                                 H, KVH, D, NP, PS, MAXP, pps, splits, scale,
-                                 s)
-            : Dp <= 128
-                ? launch_bf16<16>(q, kpool, vpool, pt, lens, ws_acc, ws_ml, B,
-                                  H, KVH, D, NP, PS, MAXP, pps, splits, scale,
-                                  s)
-                : launch_bf16<32>(q, kpool, vpool, pt, lens, ws_acc, ws_ml, B,
-                                  H, KVH, D, NP, PS, MAXP, pps, splits, scale,
-                                  s);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      err = launch_merge<bf16>(ws_acc, ws_ml, out, BH, D, splits, s);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      break;
-    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,12 +10,15 @@ Bound: device-memory bytes — each live token's K and V rows once, plus q,
 the page table and the output.  Design: split-KV over pages (one block per
 (sequence, kv head, split of the page range), float32 partials merged in
 split order by a second kernel of the same call); bf16 tiles staged by TMA
-bulk copies and multiplied on the tensor cores (mma.sync), float32 on CUDA
-cores; see the source.  The host picks the split count
+bulk copies and multiplied on the tensor cores (mma.sync); float32 q on
+CUDA cores, the group's query heads register-tiled over per-warp rings
+of bulk copies; see the source.  The host picks the split count
 (``_cuda.paged_attn_splits``) without reading the device.  The int8 mode
 (``kv_dtype="int8"``: int8 pools with float32 per-(token, head) scales)
-dequantizes each row as it is staged, in the float32 kernel's loop; its
-bound is 2 * D + 8 bytes per live token per kv head.
+stages int8 rows and widens them in shared memory: under bf16 q on the
+bf16 kernel's ring and tensor cores (its output equals the bf16 mode's
+on the dequantized pools bit for bit), under float32 q in the CUDA-core
+loop; its bound is 2 * D + 8 bytes per live token per kv head.
 
 On a CPU tensor the wrapper runs the plain version
 (``paged_attn_ref.paged_attention_ref``); on a CUDA tensor it launches
@@ -23,6 +26,8 @@ the kernel or raises.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.paged_attn_ref import paged_attention_ref
@@ -52,8 +57,11 @@ def paged_attention(q, kpool, vpool, page_table, seq_lens, scale=None,
         paged_attention.launches += 1
         if kscale is not None:
             paged_attention.int8_launches += 1
+        if q.dtype == torch.float32:
+            paged_attention.float32_launches += 1
     return out
 
 
 paged_attention.launches = 0        # kernel launches since the last reset
 paged_attention.int8_launches = 0   # of them, launches of the int8 mode
+paged_attention.float32_launches = 0  # ... of the float32-q (CUDA-core) loop

@@ -321,6 +321,19 @@ def moe(cfg, p, x):
     y = torch.einsum("xcf,xfd->xcd", h, p["we_down"].to(dt))
     contrib = y[se, torch.clamp(pos, max=cap - 1)].to(F32) \
         * (sg * keep)[:, None]
-    out = torch.zeros((T, E), dtype=F32, device=x.device).index_add_(
-        0, st, contrib)
-    return out.reshape(B, S, E).to(dt), _moe_aux(cfg, logits, topi)
+    return (_moe_combine(contrib, st, T).reshape(B, S, E).to(dt),
+            _moe_aux(cfg, logits, topi))
+
+
+def _moe_combine(contrib, st, T):
+    """Each token's sum of its K contributions (``contrib``: (T·K, E) in
+    the dispatch's sorted order, ``st`` their tokens), added into float32
+    zeros one slot at a time in that order, which visits a token's experts
+    in ascending id: the order the reference's ``out.at[st].add`` takes on
+    the CPU.  Plain gathers, no atomics: the same bits on every run."""
+    # each token's K sorted positions, ascending (st holds each token K times)
+    slots = torch.argsort(st, stable=True).view(T, -1)
+    out = torch.zeros((T, contrib.shape[1]), dtype=F32, device=contrib.device)
+    for k in range(slots.shape[1]):
+        out = out + contrib[slots[:, k]]
+    return out

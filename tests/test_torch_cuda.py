@@ -586,20 +586,32 @@ def test_paged_attention_split_count_fills_one_wave(dev):
 
 
 def test_paged_attention_makes_no_host_sync(dev):
-    """One decode layer's call reads nothing back from the device."""
-    args = on(attn_case(4, 32, 32, 4, 128, 16, 132, lens=[2111] * 32), dev,
-              torch.bfloat16)
-    K.paged_attention(*args)          # build and load outside the check
+    """One decode layer's call reads nothing back from the device, in each
+    route: bf16, int8 under bf16 q (tensor cores), float32 and int8 under
+    float32 q (the CUDA-core loop)."""
+    base = attn_case(4, 32, 32, 4, 128, 16, 132, lens=[2111] * 32)
+    args = on(base, dev, torch.bfloat16)
+    q, kp, vp, pt, lens = on(base, dev, torch.float32)
+    (kq, ks), (vq, vs) = KC.quant_store(kp), KC.quant_store(vp)
+    calls = [lambda: K.paged_attention(*args),
+             lambda: K.paged_attention(q.bfloat16(), kq, vq, pt, lens,
+                                       kscale=ks, vscale=vs),
+             lambda: K.paged_attention(q, kp, vp, pt, lens),
+             lambda: K.paged_attention(q, kq, vq, pt, lens, kscale=ks,
+                                       vscale=vs)]
+    for call in calls:                # build and load outside the check
+        call()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         with pytest.raises(RuntimeError):    # the check is live
             args[4].max().item()
-        out = K.paged_attention(*args)
+        outs = [call() for call in calls]
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert bool(out.float().isfinite().all())
+    for out in outs:
+        assert bool(out.float().isfinite().all())
 
 
 def test_serve_steps_on_card_match_cpu(dev):
@@ -1264,12 +1276,15 @@ def test_int8_paged_attention_matches_plain(dev, dtype, tol, G, D, splits):
     assert torch.equal(again, got)
 
 
+@pytest.mark.parametrize("D", [128, 24])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_int8_paged_attention_ignores_poisoned_pages(dev, dtype):
+def test_int8_paged_attention_ignores_poisoned_pages(dev, dtype, D):
     """Poison (int8 extremes, huge and NaN scales) in every page not read
-    leaves the output bit-identical."""
-    q, kq, vq, pt, ln, ks, vs = int8_case(3, 5, 8, 128, 16, 5,
+    leaves the output bit-identical (D 24: rows staged by 8-byte
+    cp.async)."""
+    q, kq, vq, pt, ln, ks, vs = int8_case(3, 5, 8, D, 16, 5,
                                           [1, 17, 33, 64, 80], dev, dtype)
+    pt[4, 2] = -1                           # a dead page inside a length
     base = paged_attn.paged_attention(q, kq, vq, pt, ln, kscale=ks,
                                       vscale=vs)
     read = torch.zeros(kq.shape[0], dtype=torch.bool, device=dev)
@@ -1297,6 +1312,160 @@ def test_int8_paged_attention_rejects_operands_it_does_not_take(dev):
                                    vscale=vs)
     with pytest.raises(ValueError, match="kpool must be"):
         paged_attn.paged_attention(q, kq, vq, pt, ln)   # int8, no scales
+    qb = q.bfloat16()
+    with pytest.raises(ValueError, match="vpool must be torch.int8"):
+        paged_attn.paged_attention(qb, kq, vq.bfloat16(), pt, ln, kscale=ks,
+                                   vscale=vs)
+    buf = torch.empty(kq.numel() + 16, dtype=torch.int8, device=dev)
+    shifted = buf[1:1 + kq.numel()].view(kq.shape)    # contiguous, offset 1
+    shifted.copy_(kq)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        paged_attn.paged_attention(qb, shifted, vq, pt, ln, kscale=ks,
+                                   vscale=vs)
+    with pytest.raises(ValueError, match="head dim"):
+        paged_attn.paged_attention(qb[..., :60].contiguous(),
+                                   kq[..., :60].contiguous(),
+                                   vq[..., :60].contiguous(), pt, ln,
+                                   kscale=ks, vscale=vs)
+
+
+# -- the int8 and float32 routes redesigned: their grids ----------------------
+
+ROUTE_GRID = [(G, D, PS) for G in (1, 3, 4, 8) for D in (24, 64, 128)
+              for PS in (8, 16)]
+
+
+def route_case(seed, G, D, PS, dev):
+    """B 4 sequences of lengths 0, 1, two pages exactly, and past a dead
+    page (an unmapped page inside its length), 2 kv heads of G query
+    heads, 9 pages each: (q, kpool, vpool, pt, lens) in float32 and the
+    pools through ``quant_store`` (kq, ks, vq, vs), on the card."""
+    MAXP = 9
+    q, kp, vp, pt, ln = attn_case(seed, 4, 2 * G, 2, D, PS, MAXP,
+                                  lens=[0, 1, 2 * PS, 8 * PS + 3],
+                                  q_scale=2.0)
+    pt[3, 2] = -1
+    f32 = on((q, kp, vp, pt, ln), dev, torch.float32)
+    (kq, ks), (vq, vs) = KC.quant_store(f32[1]), KC.quant_store(f32[2])
+    return f32, (kq, ks, vq, vs)
+
+
+def host_splits(code, args):
+    """The split count the host picks for ``args`` in mode ``code``."""
+    q, kp, _, pt, _ = args
+    index = q.device.index or 0
+    KVH = kp.shape[1]
+    return _cuda.paged_attn_splits(
+        q.shape[0] * KVH, pt.shape[1], _cuda.sm_count(index),
+        _cuda.resident_blocks(index, code, q.shape[2], q.shape[1] // KVH))
+
+
+@pytest.mark.parametrize("G,D,PS", ROUTE_GRID)
+def test_int8_route_equals_bf16_mode_on_dequantized_pools(dev, G, D, PS):
+    """Int8 pools under bf16 q run the bf16 kernel's ring and tensor cores
+    on rows widened in shared memory: at split counts 1, 3 and the host's,
+    its output equals the bf16 mode's on the plain version's dequantized
+    pools bit for bit."""
+    (q, _, _, pt, ln), (kq, ks, vq, vs) = route_case(G * D + PS, G, D, PS,
+                                                      dev)
+    qb = q.bfloat16()
+    kb, vb = KC.dequant(kq, ks, torch.bfloat16), KC.dequant(vq, vs,
+                                                            torch.bfloat16)
+    scale = float(1.0 / D ** 0.5)
+    host = host_splits(_cuda.PAGED_ATTN_INT8[torch.bfloat16],
+                       (qb, kq, vq, pt, ln))
+    for splits in (1, 3, host):
+        got = _cuda.launch_paged_attn(qb, kq, vq, pt, ln, scale,
+                                      splits=splits, kscale=ks, vscale=vs)
+        want = _cuda.launch_paged_attn(qb, kb, vb, pt, ln, scale,
+                                       splits=splits)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want), splits
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    ref = paged_attention_ref(qb, kq, vq, pt, ln, kscale=ks, vscale=vs)
+    assert float((got[1:].float() - ref[1:].float()).abs().max()) < 6e-2
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("G,D,PS", ROUTE_GRID)
+def test_float32_loop_matches_plain(dev, G, D, PS, int8):
+    """The CUDA-core loop under float32 q, over float32 pools (dtype 0)
+    and int8 pools (dtype 2): within 2e-5 of the plain version at split
+    counts 1, 3 and the host's, zeros at length 0, and bit-identical on a
+    second launch."""
+    (q, kp, vp, pt, ln), (kq, ks, vq, vs) = route_case(G * D + PS + 1, G, D,
+                                                        PS, dev)
+    args, kw = ((q, kq, vq, pt, ln), {"kscale": ks, "vscale": vs}) if int8 \
+        else ((q, kp, vp, pt, ln), {})
+    scale = float(1.0 / D ** 0.5)
+    want = paged_attention_ref(*args, **kw)
+    code = (_cuda.PAGED_ATTN_INT8 if int8 else _cuda.PAGED_ATTN_DTYPES)[
+        torch.float32]
+    for splits in (1, 3, host_splits(code, args)):
+        got = _cuda.launch_paged_attn(*args, scale, splits=splits, **kw)
+        again = _cuda.launch_paged_attn(*args, scale, splits=splits, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and torch.equal(got, again), splits
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+        assert float((got[1:] - want[1:]).abs().max()) < 2e-5, splits
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_paged_attention_poison_float32_bit_identical(dev, splits):
+    """Poison (1e3, -1e3, NaN) in every float32 page not read (unmapped,
+    or mapped past the length) leaves the CUDA-core loop's output
+    bit-identical."""
+    q, kp, vp, pt, lens = split_case(dev, torch.float32, 3, G=3, D=64,
+                                     seed=9)
+    free = sorted(set(range(kp.shape[0])) - set(pt.flatten().tolist()))
+    pt[3, -1] = free[0]               # mapped, but past that length
+    scale = float(1.0 / q.shape[-1] ** 0.5)
+    base = _cuda.launch_paged_attn(q, kp, vp, pt, lens, scale, splits=splits)
+    read = torch.zeros(kp.shape[0], dtype=torch.bool, device=dev)
+    for b in range(pt.shape[0]):
+        ids = pt[b, :-(-int(lens[b]) // kp.shape[2])]
+        read[ids[ids >= 0].long()] = True
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[~read], vp2[~read] = 1e3, float("nan")
+    out = _cuda.launch_paged_attn(q, kp2, vp2, pt, lens, scale,
+                                  splits=splits)
+    assert torch.equal(out, base)
+
+
+def test_float32_launches_counted(dev):
+    """The wrapper counts float32-q launches (the CUDA-core loop) apart:
+    float32 pools and int8 pools under float32 q, not bf16 q."""
+    (q, kp, vp, pt, ln), (kq, ks, vq, vs) = route_case(5, 8, 64, 16, dev)
+    pa = paged_attn.paged_attention
+    n0 = pa.launches, pa.float32_launches, pa.int8_launches
+    pa(q, kp, vp, pt, ln)
+    pa(q, kq, vq, pt, ln, kscale=ks, vscale=vs)
+    pa(q.bfloat16(), kq, vq, pt, ln, kscale=ks, vscale=vs)
+    assert (pa.launches - n0[0], pa.float32_launches - n0[1],
+            pa.int8_launches - n0[2]) == (3, 2, 2)
+
+
+def test_granite_moe_layer_bit_identical_on_card(dev):
+    """Granite-moe-3b's MoE layer at its published widths (d 1536, 40
+    experts top-8 of d_ff 512), sorted dispatch at capacity 1.25, bf16:
+    two runs on the same input give the same bits (the combine adds in a
+    fixed order, no atomics)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    cfg = get_arch("granite-moe-3b-a800m")
+    m, E_ = cfg.moe, cfg.d_model
+    g = torch.Generator(dev).manual_seed(0)
+    p = {"router": torch.randn(E_, m.num_experts, generator=g, device=dev)
+         * 0.02}
+    for name, shape in (("we_gate", (E_, m.expert_dff)),
+                        ("we_up", (E_, m.expert_dff)),
+                        ("we_down", (m.expert_dff, E_))):
+        p[name] = (torch.randn(m.num_experts, *shape, generator=g,
+                               device=dev) * 0.02).bfloat16()
+    x = torch.randn(16, 256, E_, generator=g, device=dev).bfloat16()
+    (a, aux_a), (b, aux_b) = L.moe(cfg, p, x), L.moe(cfg, p, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    assert bool(a.float().isfinite().all())
 
 
 def test_int8_serve_steps_on_card_match_cpu(dev):

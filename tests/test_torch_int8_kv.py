@@ -233,6 +233,37 @@ def test_int8_plain_attention_matches_reference_dequant(dtype, B, H, KVH, D,
                         - np.asarray(want, np.float32)).max()) < tol
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("G,D,PS", [(1, 24, 8), (3, 64, 16), (8, 128, 16)])
+def test_int8_plain_attention_equals_bf16_path_on_dequantized_pools(dtype, G,
+                                                                   D, PS):
+    """The plain int8 attention equals the plain attention of q's dtype on
+    ``dequant``'s pools bit for bit: the int8 mode's elements are the
+    dequantized ones (the card's counterpart holds the int8 kernel route
+    to the bf16 mode's output bit for bit)."""
+    _, tdt = DTYPES[dtype]
+    rng = np.random.RandomState(G * D + PS)
+    B, KVH, MAXP = 4, 2, 5
+    NP = B * MAXP + 2
+    q = torch.from_numpy((rng.randn(B, G * KVH, D) * 2).astype(np.float32))
+    kq, ks = KC.quant_store(torch.from_numpy(
+        (rng.randn(NP, KVH, PS, D) * 0.3).astype(np.float32)))
+    vq, vs = KC.quant_store(torch.from_numpy(
+        rng.randn(NP, KVH, PS, D).astype(np.float32)))
+    lens = np.array([1, PS, 2 * PS + 1, MAXP * PS], np.int32)
+    pt = np.full((B, MAXP), -1, np.int32)
+    ids = rng.permutation(NP)
+    for b in range(B):
+        n = -(-lens[b] // PS)
+        pt[b, :n] = ids[b * MAXP:b * MAXP + n]
+    pt[3, 1] = -1                       # a dead page inside the length
+    args = (q.to(tdt), kq, vq, torch.from_numpy(pt), torch.from_numpy(lens))
+    got = paged_attention_ref(*args, kscale=ks, vscale=vs)
+    want = paged_attention_ref(args[0], KC.dequant(kq, ks, tdt),
+                               KC.dequant(vq, vs, tdt), *args[3:])
+    assert got.dtype == tdt and torch.equal(got, want)
+
+
 @pytest.fixture(scope="module")
 def prefills():
     """Prefill of the same prompts: the reference int8, the port float32

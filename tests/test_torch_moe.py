@@ -110,6 +110,33 @@ def test_moe_layer_matches_reference(name, impl, capacity):
         assert not keep.all()              # the case drops assignments
 
 
+@pytest.mark.parametrize("capacity", [0.5, 4.0])
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m",
+                                  "granite-moe-3b-a800m"])
+def test_sorted_combine_adds_in_the_reference_order(name, capacity):
+    """The sorted dispatch's combine adds each token's contributions in the
+    dispatch's sorted order (its experts in ascending id), with no atomics:
+    on the same contributions it equals the reference's ``out.at[st].add``
+    bit for bit, and two calls of the layer give the same bits."""
+    jc, tc = configs(name, capacity_factor=capacity)
+    rng = np.random.RandomState(11)
+    p = {k: torch.from_numpy(v) for k, v in layer_params(rng, tc).items()}
+    x = torch.from_numpy(rng.randn(2, 19, tc.d_model).astype(np.float32))
+    (a, aux_a), (b, aux_b) = TL.moe(tc, p, x), TL.moe(tc, p, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    _, topi, gates = TL.moe_route(tc, p, x.reshape(-1, tc.d_model))
+    st = TL.moe_dispatch(tc, topi, gates)[1]
+    T_, E_ = topi.shape[0], tc.d_model
+    # contributions of widely spread magnitudes: any other order of the
+    # additions changes low bits
+    contrib = (rng.randn(st.numel(), E_)
+               * np.exp(rng.randn(st.numel(), 1) * 3)).astype(np.float32)
+    got = TL._moe_combine(torch.from_numpy(contrib), st, T_)
+    want = jnp.zeros((T_, E_), jnp.float32).at[jnp.asarray(st.numpy())].add(
+        jnp.asarray(contrib))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
 def test_dense_equals_sorted_without_drops():
     """The two implementations agree when nothing drops (the reference's
     ``test_dense_moe_equals_sorted``), on the port alone."""

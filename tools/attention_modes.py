@@ -1,16 +1,25 @@
-"""The paged-attention kernel's three modes at Yi-6B's decode shape, by
+"""The paged-attention kernel's four routes at Yi-6B's decode shape, by
 split count, on one card.
 
     python3 tools/attention_modes.py
 
-Builds the attention kernel, then times the bf16 mode, the float32 mode
-and the int8 mode (bf16 q over ``quant_store``'d pools) at Yi-6B's last
-decode step of ``chip_smoke.py`` phase 4 (B 32, H 32, KVH 4, D 128, page
-size 16, 2,111 tokens of 132 pages) with ``chip_smoke._device_ms``: at
-the host's split count (0) and at 1, 2, 3, 4, 8 and 16 splits.  Each mode
-is held against its plain version at the host's count first (float32
-2e-5, bf16 and int8 within ``chip_smoke._attn_limit``).  Prints one JSON
-line per mode: {"mode", "bound_us", "us": {splits: µs}}.
+Builds the attention kernel, then times each route at Yi-6B's last decode
+step of ``chip_smoke.py`` phase 4 (B 32, H 32, KVH 4, D 128, page size
+16, 2,111 tokens of 132 pages) with ``chip_smoke._device_ms``, at the
+host's split count (0) and at 1, 2, 3, 4, 8 and 16 splits:
+
+- ``bf16``: bf16 q and pools (tensor cores);
+- ``int8``: bf16 q over ``quant_store``'d pools (the bf16 kernel's ring
+  and tensor cores, rows widened in shared memory), with its output held
+  bit-equal to the bf16 mode's on the plain version's dequantized pools
+  at every split count timed;
+- ``float32``: float32 q and pools (the CUDA-core loop);
+- ``int8_f32``: float32 q over the int8 pools (the CUDA-core loop).
+
+Each route is held against its plain version at the host's count first
+(float32 q 2e-5, bf16 q within ``chip_smoke._attn_limit``).  Prints one
+JSON line per route: {"mode", "splits", "max_abs_err", "bound_us",
+"us": {splits: µs}} (and for int8 "bit_equal_bf16": {splits: bool}).
 """
 
 import json
@@ -28,7 +37,7 @@ def main() -> int:
     import torch
     import chip_smoke as cs
     from repro_torch.kernels import _cuda
-    from repro_torch.kernels.paged_attn_ref import paged_attention_ref
+    from repro_torch.kernels.paged_attn_ref import dequant, paged_attention_ref
     if not torch.cuda.is_available():
         print("attention_modes: no CUDA device is available", file=sys.stderr)
         return 2
@@ -43,28 +52,56 @@ def main() -> int:
     def widened(a):
         return tuple(t.float() if t.dtype == torch.bfloat16 else t
                      for t in a), {}
-    modes = {"bf16": [(a, {}) for a in bf16],
-             "float32": [widened(a) for a in bf16[:2]],
-             "int8": [cs._quantized(a) for a in bf16]}
+
+    def f32_q(a):
+        args, kw = a
+        return (args[0].float(), *args[1:]), kw
+    int8 = [cs._quantized(a) for a in bf16]
+    modes = {"bf16": ([(a, {}) for a in bf16], "bf16"),
+             "int8": (int8, "int8"),
+             "float32": ([widened(a) for a in bf16[:2]], "float32"),
+             "int8_f32": ([f32_q(a) for a in int8], "int8")}
     scale = 1.0 / D ** 0.5
-    for mode, batches in modes.items():
+    index = torch.cuda.current_device()
+    for mode, (batches, kind) in modes.items():
         args, kw = batches[0]
+        q = args[0]
+        code = (_cuda.PAGED_ATTN_INT8 if kw else _cuda.PAGED_ATTN_DTYPES)[
+            q.dtype]
+        host = _cuda.paged_attn_splits(
+            B * KVH, MAXP, _cuda.sm_count(index),
+            _cuda.resident_blocks(index, code, D, H // KVH))
         got = _cuda.launch_paged_attn(*args, scale, **kw).float()
         want = paged_attention_ref(*args, **kw).float()
-        limit = 2e-5 if mode == "float32" else cs._attn_limit(want)
+        limit = 2e-5 if q.dtype == torch.float32 else cs._attn_limit(want)
         err = float((got - want).abs().max())
-        cs._check(err <= limit, f"{mode} mode within {limit:.3g} of its plain "
-                  f"version ({err})")
+        cs._check(err <= limit, f"{mode} route within {limit:.3g} of its "
+                  f"plain version ({err})")
+        line = {"mode": mode, "splits": host, "max_abs_err": err}
+        if mode == "int8":            # bit for bit against the bf16 mode
+            deq = (dequant(args[1], kw["kscale"], torch.bfloat16),
+                   dequant(args[2], kw["vscale"], torch.bfloat16))
+            line["bit_equal_bf16"] = {
+                sp: torch.equal(
+                    _cuda.launch_paged_attn(*args, scale, splits=sp or host,
+                                            **kw),
+                    _cuda.launch_paged_attn(args[0], *deq, *args[3:], scale,
+                                            splits=sp or host))
+                for sp in SPLITS}
+            cs._check(all(line["bit_equal_bf16"].values()), "the int8 route "
+                      "equals the bf16 mode on the dequantized pools")
+            del deq
         us = {}
         for sp in SPLITS:
             us[sp] = 1e3 * cs._device_ms(
                 torch, lambda a, sp=sp: _cuda.launch_paged_attn(
                     *a[0], scale, splits=sp, **a[1]),
                 batches, 50, cs.KERNEL_SLEEP)
-        nbytes = cs._attn_bytes(mode, B, H, KVH, D, MAXP, last)
-        print(json.dumps({"mode": mode, "max_abs_err": err,
-                          "bound_us": nbytes / cs.HBM_BYTES_PER_S * 1e6,
-                          "us": us}), flush=True)
+        nbytes = cs._attn_bytes(kind, B, H, KVH, D, MAXP, last)
+        if mode == "int8_f32":       # float32 q and out
+            nbytes += 2 * B * H * D * 2
+        line.update(bound_us=nbytes / cs.HBM_BYTES_PER_S * 1e6, us=us)
+        print(json.dumps(line), flush=True)
         del batches, args, kw
         modes[mode] = None
         torch.cuda.empty_cache()
