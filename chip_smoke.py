@@ -195,13 +195,35 @@ Phases, in order:
    ignored, a restore into a fresh init through a new manager and 2 more
    steps whose losses equal the uninterrupted run's exactly.  The
    training path launches no kernel (asserted).
+7b. The multi-device layer at world 1, every launch count set to 0
+   before each part: a one-rank NCCL group in this process (torn down at
+   the end).  (a) The sharded continuity store (``core.distributed``) at
+   the reference's service size (``dryrun.lower_kv_cell``: 2^22 buckets,
+   ext-free, ~1.38 GB): 20,132,659 seeded records (load factor 0.6 of
+   its 33,554,432 segment slots) written through ``make_write`` in
+   batches of 65,536 (the routed walk, ``scan_walk.routed_write``), the
+   acknowledged count recorded; every record and 65,536 absent keys read
+   back through ``make_lookup``: found set and values equal to the
+   acknowledged records and to an unsharded ``ContinuityStore`` of the
+   same geometry loaded with them; 256 client batches of 4,096 timed; one
+   mixed batch of 4,096 (updates, deletes, fresh and present inserts, 64
+   keys taking eight ops each) through the walk on a clone, its status
+   and every table field equal to the plain version's on a host copy byte
+   for byte, then timed beside its latency floor (a dependent chase over
+   the table's rows).  (b) Phase 7's Yi-6B cut, 2 steps on a (1, 1)
+   ``("data", "model")`` mesh (DTensor parameters and ZeRO-1 moments)
+   against the same 2 steps unsharded: loss within 1e-3, every leaf atol
+   2e-4 / rtol 2e-3 (``tests/test_distributed.py``'s tolerances); no
+   kernel launched.
 8. Report: one JSON line of every kernel's launches (the TPU kernels' on
    the serving path, phase 5; the serial walk's on the baselines path,
    phase 3c; probe and mutate also on the cluster path, phase 3f, as
    ``cluster_launches``, and on the cache and chaos path, phase 3g, as
    ``cache_launches``; every kernel's on the moe path, phase 6b (a), as
    ``moe_launches``, on the training path, phase 7, as
-   ``train_launches``, and attention's times at the moe path's decode
+   ``train_launches``, on the multi-device path, phase 7b (a), as
+   ``dist_launches``, and the walk's routed mode timed there as the walk
+   row's ``routed``; attention's times at the moe path's decode
    shape as ``moe_shape``; the int8 mode as its own row,
    ``int8_attention``, with its launches on the int8 path of phase 5b,
    and the merged path's attention launches as ``merged_launches``; the
@@ -401,12 +423,13 @@ def _event_ms(torch, fn, batches, iters):
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, batches, iters, sleep_cycles):
+def _device_ms(torch, fn, batches, iters, sleep_cycles, before=None):
     """Mean device milliseconds of ``fn(batch)``: each call is enqueued
     behind a device-side sleep of ``sleep_cycles``, so its two events
     bracket the device work alone and not the host's enqueue time.  A call
     whose enqueue outlasted the sleep is not counted (its events would
-    hold a host gap); at least 90 % of the calls must count."""
+    hold a host gap); at least 90 % of the calls must count.  ``before()``,
+    when given, runs ahead of each call's sleep (it sets the L2 state)."""
     for b in batches[:2]:
         fn(b)
     s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -419,6 +442,8 @@ def _device_ms(torch, fn, batches, iters, sleep_cycles):
     for i in range(iters):
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()     # an empty launch queue never blocks
+        if before is not None:
+            before()
         torch.cuda._sleep(sleep_cycles)
         t0 = time.perf_counter()
         s.record()
@@ -3705,6 +3730,290 @@ def training_phase(torch, card, twins) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7b: the multi-device layer at world 1
+# ---------------------------------------------------------------------------
+
+# the reference's service table (src/repro/launch/dryrun.py:415-420)
+DIST_BUCKETS = 2 ** 22          # 2,097,152 pairs, 33,554,432 segment slots
+DIST_RECORDS = int(0.6 * DIST_BUCKETS * 8)   # load factor 0.6 of those slots
+DIST_BATCH = 65_536             # write and read-back batch
+DIST_CLIENT_B = 4_096           # the reference's batch per client
+DIST_CLIENT_BATCHES = 256
+DIST_MIX_B = 4_096              # the walk's mixed batch (card vs host copy)
+DIST_TRAIN_STEPS = 2
+DIST_LOSS_TOL, DIST_ATOL, DIST_RTOL = 1e-3, 2e-4, 2e-3   # test_distributed
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mixed_entries(torch, keys, ok, fresh, gen):
+    """DIST_MIX_B write requests over the loaded store: updates and deletes
+    of acknowledged keys, inserts of fresh and of present keys, and 64
+    keys each taking insert, update, delete, insert, update, update,
+    delete, insert in one batch; (op, keys, vals) in batch order."""
+    from repro_torch.core import distributed as D
+    acked = torch.nonzero(ok).flatten()
+    pick = acked[torch.randperm(acked.numel(), generator=gen,
+                                device="cuda")[:2560]]
+    rep = fresh[:64]
+    cycle = [D.OP_INSERT, D.OP_UPDATE, D.OP_DELETE, D.OP_INSERT,
+             D.OP_UPDATE, D.OP_UPDATE, D.OP_DELETE, D.OP_INSERT]
+    k = torch.cat([keys[pick[:1024]], keys[pick[1024:2048]], fresh[64:1088],
+                   keys[pick[2048:2560]],
+                   rep.repeat(8, 1)])                 # copies spread out
+    op = torch.tensor([D.OP_UPDATE] * 1024 + [D.OP_DELETE] * 1024
+                      + [D.OP_INSERT] * 1536 + [c for c in cycle
+                                                for _ in range(64)],
+                      dtype=torch.int32, device="cuda")
+    order = torch.randperm(DIST_MIX_B - 512, generator=gen, device="cuda")
+    k = torch.cat([k[:-512][order], k[-512:]])
+    op = torch.cat([op[:-512][order], op[-512:]])
+    v = torch.randint(-2 ** 31, 2 ** 31, (DIST_MIX_B, 4), dtype=torch.int32,
+                      generator=gen, device="cuda")
+    return op, k.contiguous(), v
+
+
+def _dist_store(torch, card) -> dict:
+    """7b (a): the sharded store at the service size, world 1 on the card."""
+    from repro_torch import api
+    from repro_torch.core import continuity as ch
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import scan_walk as SW
+    from repro_torch.launch.mesh import make_debug_mesh
+    scfg = D.StoreConfig(table=ch.ContinuityConfig(num_buckets=DIST_BUCKETS,
+                                                   ext_frac=0.0),
+                         num_shards=1)
+    mesh = make_debug_mesh((1,), ("data",), device_type="cuda")
+    write, lookup = D.make_write(scfg, mesh), D.make_lookup(scfg, mesh)
+    table = D.create_sharded(scfg, "cuda")
+    gen = torch.Generator("cuda").manual_seed(SEED + 11)
+    N = DIST_RECORDS
+    keys = torch.randint(-2 ** 31, 2 ** 31, (N, 4), dtype=torch.int32,
+                         generator=gen, device="cuda")
+    vals = torch.randint(-2 ** 31, 2 ** 31, (N, 4), dtype=torch.int32,
+                         generator=gen, device="cuda")
+    fresh = torch.randint(-2 ** 31, 2 ** 31, (DIST_BATCH, 4),
+                          dtype=torch.int32, generator=gen, device="cuda")
+    ins = torch.full((DIST_BATCH,), D.OP_INSERT, dtype=torch.int32,
+                     device="cuda")
+    ok = torch.empty(N, dtype=torch.bool, device="cuda")
+    routed = torch.empty(N, dtype=torch.bool, device="cuda")
+
+    def load():
+        for s in range(0, N, DIST_BATCH):
+            e = min(s + DIST_BATCH, N)
+            _, ok[s:e], routed[s:e] = write(table, ins[:e - s], keys[s:e],
+                                            vals[s:e])
+    _, t_load = _timed(torch, load)
+    acked = int(ok.sum())
+    # the walk's floor: one dependent trip to a random pair row of the
+    # loaded table (its slot keys, 320 B apart; mostly beyond L2)
+    rows = table.keys.view(torch.uint8).reshape(-1)
+    floor_us = _chase_us(torch, rows, scfg.table.slots_per_pair * 16,
+                         CHASE_COLD_STEPS, SEED + 40)
+    _check(bool(routed.all()), "world 1 routes every write")
+    found = torch.empty(N, dtype=torch.bool, device="cuda")
+    got = torch.empty_like(vals)
+
+    def read():
+        for s in range(0, N, DIST_BATCH):
+            r = lookup(table, keys[s:s + DIST_BATCH])
+            found[s:s + DIST_BATCH], got[s:s + DIST_BATCH] = r.found, r.values
+        return lookup(table, fresh)
+    neg, t_read = _timed(torch, read)
+    _check(torch.equal(found, ok), "every acknowledged record reads back and "
+           "no refused one does")
+    _check(torch.equal(got[ok], vals[ok]), "every acknowledged record's "
+           "value reads back")
+    _check(not bool(neg.found.any()), "no absent key is found")
+    led = [int(x) for x in neg.ledger]
+    _check(led[1] == DIST_BATCH and led[3] == DIST_BATCH,
+           f"the read ledger counts one row read per key ({led})")
+
+    # the unsharded store of the same geometry, loaded with what was acked
+    # (a comparison: its probe launches are not the sharded path's)
+    def unsharded():
+        store = api.make_store("continuity", num_buckets=DIST_BUCKETS,
+                               ext_frac=0.0, stash_frac=0.0, device="cuda")
+        flat = store.create()
+        ak, av = keys[ok], vals[ok]
+        for s in range(0, acked, 2 ** 20):
+            _, res = store.insert(flat, ak[s:s + 2 ** 20],
+                                  av[s:s + 2 ** 20])
+            _check(bool(res.ok.all()), "the unsharded store takes every "
+                   "acknowledged record")
+        del ak, av
+        for s in range(0, N, 2 ** 20):
+            res = store.lookup(flat, keys[s:s + 2 ** 20])
+            _check(torch.equal(res.ok, found[s:s + 2 ** 20]), "the sharded "
+                   "found set equals the unsharded store's")
+            hit = res.ok
+            _check(torch.equal(res.values[hit], got[s:s + 2 ** 20][hit]),
+                   "the sharded values equal the unsharded store's")
+        _check(not bool(store.lookup(flat, fresh).ok.any()), "the unsharded "
+               "store finds no absent key either")
+    _uncounted(unsharded)
+    torch.cuda.empty_cache()
+
+    # 256 client batches of 4,096 acknowledged keys, timed
+    idx = torch.nonzero(ok).flatten()
+    batches = [keys[idx[torch.randint(0, idx.numel(), (DIST_CLIENT_B,),
+                                      generator=gen, device="cuda")]]
+               for _ in range(8)]
+    client_ms = _event_ms(torch, lambda b: lookup(table, b), batches,
+                          DIST_CLIENT_BATCHES)
+
+    # the walk's mixed batch on a clone, against its plain version on a
+    # host copy of the table, byte for byte; then the kernel timed alone
+    op, mk, mv = _mixed_entries(torch, keys, ok, fresh, gen)
+    pair, parity = ch.locate(scfg.table, mk)
+    ent = (pair.to(torch.int32), parity.to(torch.int32), op, mk, mv,
+           torch.ones(DIST_MIX_B, dtype=torch.bool, device="cuda"))
+    lcfg = scfg.local_cfg
+    host = ch.ContinuityTable(*(t.cpu() for t in table))
+    clone = ch.ContinuityTable(*(t.clone() for t in table))
+    status = _uncounted(lambda: SW.routed_write(lcfg, clone, *ent))
+    t0 = time.perf_counter()
+    want = SW.routed_write(lcfg, host, *(t.cpu() for t in ent))
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    _check(torch.equal(status.cpu(), want), "the routed walk's status equals "
+           "its plain version's")
+    for f in ch.ContinuityTable._fields:
+        _check(torch.equal(getattr(clone, f).cpu(), getattr(host, f)),
+               f"the routed walk's table field {f} equals its plain "
+               f"version's byte for byte")
+    n_ok = int(want.sum())
+    _check(0 < n_ok < DIST_MIX_B, f"the mixed batch both applies and refuses "
+           f"({n_ok} of {DIST_MIX_B})")
+    del host
+    # timed from a cold L2 (a pass over the table's slot keys first), as
+    # the floor's chase, and warm (the batch's rows left by the last call)
+    def cold():
+        torch.count_nonzero(rows)
+    walk_ms, warm_ms = (_uncounted(lambda: _device_ms(
+        torch, lambda _: SW.routed_write(lcfg, clone, *ent), [None], 8,
+        2_000_000, before)) for before in (cold, None))
+    del clone
+    torch.cuda.empty_cache()
+    print(f"phase 7b (a): sharded store (world 1, NCCL) at the service size, "
+          f"{DIST_BUCKETS} buckets: {acked} of {N} records acknowledged "
+          f"(load factor {acked / (DIST_BUCKETS * 8):.6f} of the segment "
+          f"slots) "
+          f"in {t_load:.2f} s through make_write "
+          f"({t_load / N * 1e6:.4f} µs per routed insert); read back with "
+          f"{DIST_BATCH} absent keys in {t_read:.2f} s, found set and values "
+          f"equal the unsharded ContinuityStore's; {DIST_CLIENT_BATCHES} "
+          f"client batches of {DIST_CLIENT_B}: {client_ms:.4f} ms each; the "
+          f"routed walk's mixed batch of {DIST_MIX_B} ({n_ok} applied) equals "
+          f"its plain version byte for byte, {walk_ms:.4f} ms on the card "
+          f"from a cold L2, {warm_ms:.4f} ms warm (plain {plain_ms:.1f} ms "
+          f"on a host copy; latency floor "
+          f"{DIST_MIX_B * floor_us / 1e3:.4f} ms: {floor_us:.4f} µs per "
+          f"dependent row trip) [{card}]", flush=True)
+    del table, keys, vals
+    torch.cuda.empty_cache()
+    return {"B": DIST_MIX_B, "replaces": "src/repro/core/distributed.py:228",
+            "ms": walk_ms, "warm_ms": warm_ms,
+            "plain_ms": plain_ms,
+            "latency_floor_ms": DIST_MIX_B * floor_us / 1e3,
+            "max_abs_err": 0, "load_s": t_load, "read_s": t_read,
+            "acked": acked, "client_ms": client_ms}
+
+
+def _dist_train(torch, card) -> str:
+    """7b (b): phase 7's Yi-6B cut, 2 steps on a (1, 1) mesh against the
+    same 2 steps unsharded."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training.train_step import make_train_step, place_state
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=TRAIN_LAYERS,
+                              remat="full")
+    opt = O.OptConfig(**TRAIN_OPT)
+    step = make_train_step(cfg, opt, num_micro=TRAIN_MICRO)
+    rng = np.random.RandomState(SEED + 7)
+    toks = rng.randint(0, cfg.vocab, (TRAIN_B, TRAIN_SEQ)).astype(np.int32)
+    batch = {"inputs": torch.from_numpy(toks).cuda(),
+             "labels": torch.from_numpy(np.roll(toks, -1, 1)).cuda()}
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(SEED),
+                           master_dtype=torch.float32)
+    start = O.tree_map(lambda t: t.clone(), params)
+    state = O.init(params)
+    ref_loss, times = [], []
+    for _ in range(DIST_TRAIN_STEPS):
+        (params, state, st), t = _timed(torch, lambda: step(params, state,
+                                                            batch))
+        ref_loss.append(float(st["loss"]))
+        times.append(t)
+    del state
+    torch.cuda.empty_cache()
+    mesh = make_debug_mesh((1, 1), ("data", "model"), device_type="cuda")
+    losses, dtimes = [], []
+    with SH.use_mesh(mesh):
+        p, s = place_state(cfg, opt, start, O.init(start))
+        del start
+        for _ in range(DIST_TRAIN_STEPS):
+            (p, s, st), t = _timed(torch, lambda: step(p, s, batch))
+            losses.append(float(st["loss"]))
+            dtimes.append(t)
+        placed = {k: tuple(v.placements) for k, v in O.leaves(p)}
+        worst = 0.0
+        for (k, a), (_, b) in zip(O.leaves(params), O.leaves(p)):
+            d = (b.to_local() - a).abs()
+            worst = max(worst, float((d - DIST_RTOL * a.abs()).max()))
+    del p, s, params
+    torch.cuda.empty_cache()
+    for a, b in zip(ref_loss, losses):
+        _check(abs(a - b) < DIST_LOSS_TOL, f"the sharded loss {b} within "
+               f"{DIST_LOSS_TOL} of the unsharded {a}")
+    _check(worst <= DIST_ATOL, f"every sharded leaf within atol {DIST_ATOL} "
+           f"/ rtol {DIST_RTOL} of the unsharded run ({worst})")
+    return (f"phase 7b (b): {cfg.name} {TRAIN_LAYERS} layers, "
+            f"{TRAIN_B} x {TRAIN_SEQ} tokens, {DIST_TRAIN_STEPS} steps on a "
+            f"(1, 1) ('data', 'model') mesh (DTensor, wq placed "
+            f"{placed['blocks.wq']}): losses {losses} against the unsharded "
+            f"{ref_loss}; worst leaf excess over rtol {worst:.3g} (atol "
+            f"{DIST_ATOL}); {[round(t, 3) for t in dtimes]} s per step "
+            f"against {[round(t, 3) for t in times]} [{card}]")
+
+
+def multidevice_phase(torch, card) -> tuple:
+    """Phase 7b: a world-1 NCCL group in this process, the sharded store
+    and the sharded training step on the card, the group torn down at the
+    end; returns (the walk's routed-mode record, the kernels' launches)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        _reset_launches()
+        routed = _dist_store(torch, card)
+        launches = _kernel_launches()
+        t1 = time.perf_counter()
+        _reset_launches()
+        line = _dist_train(torch, card)
+        train_launches = _kernel_launches()
+    finally:
+        dist.destroy_process_group()
+    print(f"{line}; (a) {t1 - t0:.1f} s, (b) {time.perf_counter() - t1:.1f} "
+          f"s; launches (a) {launches}, (b) {train_launches}", flush=True)
+    _check(launches["scan_walk"] > 0, "the sharded store's writes launched "
+           "the serial walk")
+    _check(not any(train_launches.values()), "the sharded training path "
+           "launches no kernel")
+    return routed, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3860,7 +4169,15 @@ def _smoke(torch, twins) -> int:
     train_launches = training_phase(torch, card, twins)
     print(f"training path: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- phase 7b: the multi-device layer at world 1, launches counted ---
+    t0 = time.perf_counter()
+    routed, dist_launches = multidevice_phase(torch, card)
+    print(f"multi-device path: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- phase 8: report -------------------------------------------------
+    walk_row["routed"] = {k: routed[k] for k in
+                          ("B", "replaces", "ms", "warm_ms", "plain_ms",
+                           "latency_floor_ms", "max_abs_err")}
     rows.append(walk_row)
     launches["scan_walk"] = walk_launches
     for r in rows:
@@ -3874,6 +4191,7 @@ def _smoke(torch, twins) -> int:
             r["cache_launches"] = g_launches[r["name"]]
         r["moe_launches"] = moe_launches[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
+        r["dist_launches"] = dist_launches[r["name"]]
         if r["name"] == "paged_attention":     # granite's decode shape
             e, ms, plain_ms, bound_ms, lib_ms = moe_attn
             r["moe_shape"] = {"B": MOE_B, "H": 24, "KVH": 8, "D": 64,
@@ -3883,12 +4201,14 @@ def _smoke(torch, twins) -> int:
                               "library_ms": lib_ms}
             r["merged_launches"] = int8_row["merged_launches"]
     rows.append(dict(int8_row, moe_launches=moe_launches["int8_attention"],
-                     train_launches=train_launches["int8_attention"]))
+                     train_launches=train_launches["int8_attention"],
+                     dist_launches=dist_launches["int8_attention"]))
     # the float32-q loop: its launches on the float32 twins' paths
     rows.append(dict(f32_row, launches=sum(F32_TWIN_LAUNCHES.values()),
                      twin_launches=dict(F32_TWIN_LAUNCHES),
                      moe_launches=moe_launches["float32_attention"],
-                     train_launches=train_launches["float32_attention"]))
+                     train_launches=train_launches["float32_attention"],
+                     dist_launches=dist_launches["float32_attention"]))
     _check(all(n > 0 for n in F32_TWIN_LAUNCHES.values())
            and len(F32_TWIN_LAUNCHES) == 3, f"every float32 twin launched "
            f"the float32-q loop ({F32_TWIN_LAUNCHES})")

@@ -392,14 +392,19 @@ def _need_dtype(t: torch.Tensor, name: str, dtype, device) -> None:
                          f"{device}, got {t.dtype} on {t.device}")
 
 
-def launch_scan_walk(scheme: str, op: str, cfg, table, keys, vals, active):
+def launch_scan_walk(scheme: str, op: str, cfg, table, keys, vals, active,
+                     route=None):
     """Check the operands and launch the serial walk (prologue + one-warp
     walk) on the current stream; the table updates in place.  Returns
-    ``(ok, pm)``, each (B,) int32.  Reads nothing back from the device.
-    Raises on any operand it does not take or a failed launch."""
+    ``(ok, pm)``, each (B,) int32 (continuity's routed mode: ``(status,
+    None)``, its entries' ``(pair, parity, op)`` in ``route``).  Reads
+    nothing back from the device.  Raises on any operand it does not take
+    or a failed launch."""
     dev = keys.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if (scheme, op) == ("continuity", "routed"):
+        return _launch_routed(cfg, table, keys, vals, active, *route), None
     mode = SCAN_WALK_MODES[(scheme, op)]
     B = keys.shape[0]
     bs = cfg.bucket_slots
@@ -461,6 +466,51 @@ def launch_scan_walk(scheme: str, op: str, cfg, table, keys, vals, active):
     if err:
         raise RuntimeError(f"scan_walk_launch failed: cudaError {err}")
     return ok, pm
+
+
+def _launch_routed(cfg, table, keys, vals, live, pair, parity, op):
+    """The walk's continuity mode (``scan_walk.routed_write``): N routed
+    entries applied in order to the ext-free local table in place;
+    returns the (N,) int32 status."""
+    dev = keys.device
+    N = keys.shape[0]
+    P, SL = cfg.num_pairs, cfg.slots_per_pair
+    if cfg.ext_frac != 0.0:
+        raise ValueError("the routed walk takes ext-free tables")
+    if not (1 <= cfg.seg_slots <= 32) or cfg.total_bits > 32 or P >= 2 ** 31:
+        raise ValueError(f"unsupported geometry: {cfg}")
+    for name in ("keys", "vals"):
+        t = getattr(table, name)
+        _need(t, f"table.{name}", (P, SL, 4), dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"table.{name} must be 16-byte aligned")
+    _need(table.indicator, "table.indicator", (P,), dev)
+    _need(table.version, "table.version", (P,), dev)
+    _need(keys, "keys", (N, 4), dev)
+    _need(vals, "vals", (N, 4), dev)
+    _need_dtype(live, "live", torch.bool, dev)
+    for name, t in (("pair", pair), ("parity", parity), ("op", op)):
+        _need(t, name, (N,), dev)
+    for name, t in (("keys", keys), ("vals", vals)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    status = torch.empty(N, dtype=torch.int32, device=dev)
+    if N == 0:
+        return status
+    info = torch.stack([pair, parity, op, live.to(torch.int32)], 1)
+    fn = scan_walk_lib().scan_walk_routed_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        err = fn(table.keys.data_ptr(), table.vals.data_ptr(),
+                 table.indicator.data_ptr(), table.version.data_ptr(),
+                 info.data_ptr(), keys.data_ptr(), vals.data_ptr(), N, SL,
+                 cfg.seg_slots, status.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"scan_walk_routed_launch failed: cudaError {err}")
+    return status
 
 
 def launch_scan_walk_hash(keys: torch.Tensor):

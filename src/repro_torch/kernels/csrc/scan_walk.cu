@@ -2,10 +2,13 @@
 //
 // No TPU kernel is replaced.  The reference's level and P-FaRM-KV
 // insert / update / delete (src/repro/core/level.py:344, :354, :363 and
-// src/repro/core/pfarm.py:352, :362, :371) are a jax.lax.scan over the
-// batch: each op reads the tokens and slots the previous op left, and takes
-// one branch of a lax.cond (level: plain or one-movement insert, free or
-// logged update; pfarm: plain, one displacement or a chain block).  The
+// src/repro/core/pfarm.py:352, :362, :371), and the distributed continuity
+// store's owner-side writes (src/repro/core/distributed.py:228,
+// routed_kernel below), are a jax.lax.scan over the batch: each op reads the
+// tokens and slots the previous op left, and takes one branch of a lax.cond
+// (level: plain or one-movement insert, free or logged update; pfarm: plain,
+// one displacement or a chain block; continuity: insert, update or delete on
+// the entry's segment).  The
 // walk is exact by construction: it applies the batch in batch order.
 //
 // Bound: latency.  Each op needs at least one dependent random trip to
@@ -459,6 +462,84 @@ walk_kernel(int mode, Table t, const uint4* __restrict__ qkeys,
   }
 }
 
+// -- continuity's routed writes -----------------------------------------------
+
+// The owner side of the distributed store's writes (core/distributed.py;
+// the reference's _apply_routed_writes, a jax.lax.scan over the S * CAP
+// routed entries, src/repro/core/distributed.py:228).  One warp, entries in
+// order; lane j < seg holds candidate j of the entry's segment in probe
+// order (parity 0: slot j; parity 1: slot sp - 1 - j), its key and the
+// pair's indicator word loaded in flight together (one dependent trip per
+// entry).  Ballots give the first match and the first free slot.  An insert
+// needs a free slot and no match, an update a match and a free slot (new
+// slot written, then both bits flipped), a delete a match (its bit
+// cleared).  Lane 0 stores the payload, then the indicator word and the
+// bumped version (the one 8-byte commit of the reference); the fp word
+// and count are not written, as in the reference.  status: 1 = applied.
+__global__ void __launch_bounds__(32, 1)
+routed_kernel(uint4* __restrict__ keys, uint4* __restrict__ vals,
+              uint32_t* __restrict__ indicator, uint32_t* __restrict__ version,
+              const int4* __restrict__ info, const uint4* __restrict__ qkeys,
+              const uint4* __restrict__ qvals, int N, int sp, int seg,
+              int* __restrict__ status) {
+  const int lane = threadIdx.x;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const bool in = lane < seg;
+  for (int base = 0; base < N; base += 32) {
+    // one coalesced trip for the next 32 entries' fields
+    const int i = base + lane;
+    const bool have = i < N;
+    const int4 my_info = have ? info[i] : make_int4(0, 0, 0, 0);
+    const uint4 my_key = have ? qkeys[i] : zero;
+    const uint4 my_val = have ? qvals[i] : zero;
+    int my_status = 0;
+    const int n = min(32, N - base);
+    for (int k = 0; k < n; ++k) {
+      const int live = __shfl_sync(kFull, my_info.w, k);
+      const int op = __shfl_sync(kFull, my_info.z, k);
+      if (!live || op < 1 || op > 3) continue;         // dead entry: no-op
+      const int pr = __shfl_sync(kFull, my_info.x, k);
+      const int pa = __shfl_sync(kFull, my_info.y, k);
+      const uint4 key = shfl4(my_key, k);
+      const uint4 val = shfl4(my_val, k);
+      const size_t row = static_cast<size_t>(pr) * sp;
+      const int slot = pa ? sp - 1 - lane : lane;
+      const uint32_t word = __ldcg(indicator + pr);
+      const uint4 sk = in ? ld_slot(keys, row + slot) : zero;
+      const bool valid = in && ((word >> slot) & 1u);
+      const unsigned M = __ballot_sync(kFull, valid && same(sk, key));
+      const unsigned E = __ballot_sync(kFull, in && !valid);
+      // slot of candidate f: pa ? sp - 1 - f : f (no free slot: candidate 0)
+      const int mf = M ? __ffs(M) - 1 : 0, ef = E ? __ffs(E) - 1 : 0;
+      const int mslot = pa ? sp - 1 - mf : mf;
+      const int eslot = pa ? sp - 1 - ef : ef;
+      bool done;
+      uint32_t nw;
+      if (op == 1) {
+        done = E && !M;
+        nw = word | (1u << eslot);
+      } else if (op == 2) {
+        done = M && E;
+        nw = (word | (1u << eslot)) ^ (1u << mslot);
+      } else {
+        done = M != 0;
+        nw = word & ~(1u << mslot);
+      }
+      if (done && lane == 0) {
+        if (op != 3) {
+          keys[row + eslot] = key;
+          vals[row + eslot] = val;
+        }
+        indicator[pr] = nw;
+        version[pr] = __ldcg(version + pr) + 1u;
+      }
+      if (lane == k) my_status = done;
+      __syncwarp();          // this entry's stores before the next one's loads
+    }
+    if (have) status[i] = my_status;
+  }
+}
+
 __global__ void hash_kernel(const uint4* __restrict__ keys, int B,
                             uint32_t* __restrict__ h1,
                             uint32_t* __restrict__ h2) {
@@ -529,6 +610,29 @@ extern "C" int scan_walk_launch(int mode, void* keys_a, void* vals_a,
       static_cast<const uint4*>(qvals), static_cast<const uint8_t*>(active),
       static_cast<const int*>(cand), B, static_cast<int*>(ok),
       static_cast<int*>(pm));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Continuity's routed writes: N entries applied in order to the local
+// ext-free table (keys, vals: (P, sp) slots of 16 bytes, 16-byte aligned;
+// indicator, version: (P,) words).  info: (N,) int4 {local pair, parity,
+// op (1 insert, 2 update, 3 delete), live}; qkeys, qvals: (N, 4) words,
+// 16-byte aligned; status: (N,) int32 out.  seg <= 32 candidates of sp
+// slots per pair.  One warp on the stream; returns the cudaError_t.
+extern "C" int scan_walk_routed_launch(void* keys, void* vals,
+                                       void* indicator, void* version,
+                                       const void* info, const void* qkeys,
+                                       const void* qvals, int N, int sp,
+                                       int seg, void* status, void* stream) {
+  if (N <= 0) return 0;
+  if (seg < 1 || seg > 32 || sp < seg || sp > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  routed_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint4*>(keys), static_cast<uint4*>(vals),
+      static_cast<uint32_t*>(indicator), static_cast<uint32_t*>(version),
+      static_cast<const int4*>(info), static_cast<const uint4*>(qkeys),
+      static_cast<const uint4*>(qvals), N, sp, seg,
+      static_cast<int*>(status));
   return static_cast<int>(cudaGetLastError());
 }
 

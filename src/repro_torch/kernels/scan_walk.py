@@ -1,12 +1,15 @@
-"""Serial-walk kernel: the level and P-FaRM-KV write paths in batch order.
+"""Serial-walk kernel: the level and P-FaRM-KV write paths in batch order,
+and the distributed continuity store's routed writes in the order received.
 
 No TPU kernel is replaced: the reference runs these write paths as a
 ``jax.lax.scan`` over the batch (``src/repro/core/level.py:344``, ``:354``,
-``:363``; ``src/repro/core/pfarm.py:352``, ``:362``, ``:371``).  The CUDA
+``:363``; ``src/repro/core/pfarm.py:352``, ``:362``, ``:371``;
+``src/repro/core/distributed.py:266``).  The CUDA
 kernel in ``csrc/scan_walk.cu`` walks the batch in order, one op at a time,
 with a warp's lanes over the op's candidate slots, and takes the branch the
 reference takes (level: plain or one-movement insert, free or logged
-update; pfarm: plain, one displacement or a chain block).  The table
+update; pfarm: plain, one displacement or a chain block; continuity's
+routed entries: insert, update or delete on the entry's segment).  The table
 updates in place; ``count`` (and pfarm's ``ocount``) in device memory.
 
 Bound: latency, one dependent random trip to device memory per op (the
@@ -26,7 +29,8 @@ import torch
 from repro_torch.core import pmem
 from repro_torch.core.words import batch_words
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.scan_walk_ref import chase_ref, scan_walk_ref
+from repro_torch.kernels.scan_walk_ref import (chase_ref, routed_write_ref,
+                                               scan_walk_ref)
 
 
 def walk(scheme: str, op: str, cfg, t, keys, vals, mask):
@@ -57,6 +61,26 @@ def scan_walk(scheme: str, op: str, cfg, table, keys, vals, active):
 
 
 scan_walk.launches = 0   # kernel launches since the last reset
+
+
+def routed_write(cfg, table, pair, parity, op, keys, vals, live):
+    """Apply the routed write entries of the distributed store
+    (``core.distributed``) to the local ext-free continuity ``table`` in
+    place, one at a time in order: entry ``i`` is op ``op[i]`` (1 insert,
+    2 update, 3 delete) of key ``keys[i]`` / value ``vals[i]`` (4 int32
+    words each) at local pair ``pair[i]`` with home parity ``parity[i]``,
+    applied where ``live[i]``.  Returns the (N,) int32 status (1 =
+    applied).  Counted in ``scan_walk.launches``."""
+    if keys.device.type == "cpu":
+        return routed_write_ref(cfg, table, pair, parity, op, keys, vals,
+                                live)
+    if keys.device.type == "meta":      # shapes only (launch.dryrun)
+        return torch.empty(keys.shape[0], dtype=torch.int32, device="meta")
+    out, _ = _cuda.launch_scan_walk("continuity", "routed", cfg, table, keys,
+                                    vals, live, route=(pair, parity, op))
+    if keys.shape[0]:
+        scan_walk.launches += 1
+    return out
 
 
 def chase(data: torch.Tensor, elem: int, steps: int, seed: int) -> torch.Tensor:

@@ -2,7 +2,9 @@
 
 Per-op functions mirroring the reference's ``_insert_one`` /
 ``_update_one`` / ``_delete_one`` of ``repro.core.level`` and
-``repro.core.pfarm``, applied to the batch in order, in place: each op
+``repro.core.pfarm`` (and ``routed_write_ref``, continuity's routed
+writes of ``repro.core.distributed``), applied to the batch in order, in
+place: each op
 reads what the previous one left, and takes exactly the branch the
 reference's ``lax.cond`` takes.  As the kernel does, the key-only
 quantities (level's candidate buckets, pfarm's home bucket) are computed
@@ -257,6 +259,57 @@ def scan_walk_ref(scheme: str, op: str, cfg, t, keys, vals, active):
             elif op == "delete":
                 t.count.sub_(1)
     return ok, pm
+
+
+# -- continuity's routed writes -------------------------------------------------
+
+def routed_write_ref(cfg, t, pair, parity, op, keys, vals, live):
+    """Plain version of ``scan_walk.routed_write``: the reference's
+    ``_apply_routed_writes`` (``src/repro/core/distributed.py:228``), one
+    entry at a time in order, on the local ext-free table ``t`` in place.
+    An insert takes the first free slot of the key's segment when the key
+    is absent; an update needs a match and a free slot (the new slot
+    written, then both bits flipped); a delete clears the match's bit.
+    Every success commits the indicator word and bumps ``version``; the
+    fingerprint word and ``count`` are not written.  Returns the (N,)
+    int32 status (1 = applied)."""
+    seg, sp = cfg.seg_slots, cfg.slots_per_pair
+    N = pair.shape[0]
+    status = torch.zeros(N, dtype=I32, device=keys.device)
+    pr_l, pa_l, op_l, lv_l = (pair.tolist(), parity.tolist(), op.tolist(),
+                              live.tolist())
+    for i in range(N):
+        o = op_l[i]
+        if not lv_l[i] or o not in (1, 2, 3):
+            continue
+        pr = pr_l[i]
+        cand = range(seg) if pa_l[i] == 0 else range(sp - 1, sp - 1 - seg, -1)
+        word = int(t.indicator[pr]) & 0xFFFFFFFF
+        eq = (t.keys[pr] == keys[i]).all(-1).tolist()
+        mslot = next((s for s in cand if (word >> s) & 1 and eq[s]), None)
+        eslot = next((s for s in cand if not (word >> s) & 1), None)
+        if o == 1:
+            done = eslot is not None and mslot is None
+        elif o == 2:
+            done = mslot is not None and eslot is not None
+        else:
+            done = mslot is not None
+        if not done:
+            continue
+        if o != 3:
+            t.keys[pr, eslot] = keys[i]
+            t.vals[pr, eslot] = vals[i]
+        if o == 1:
+            word |= 1 << eslot
+        elif o == 2:
+            word = (word | (1 << eslot)) ^ (1 << mslot)
+        else:
+            word &= ~(1 << mslot) & 0xFFFFFFFF
+        t.indicator[pr] = word - (1 << 32) if word >> 31 else word
+        v = (int(t.version[pr]) + 1) & 0xFFFFFFFF
+        t.version[pr] = v - (1 << 32) if v >> 31 else v
+        status[i] = 1
+    return status
 
 
 # -- the latency chase --------------------------------------------------------

@@ -9,9 +9,17 @@ Float32 master weights from a ``torch.Generator`` seeded with ``--seed``;
 the reference's synthetic data (a ``DeterministicSchedule`` and one Philox
 stream per step, numpy), so a restarted run sees the same batches.  With
 ``--ckpt`` the run restores the newest committed checkpoint, saves every
-``--ckpt-every`` steps (async) and at the end.  The reference's
-multi-device paths (``--mesh single|multi``, ``JAX_COORDINATOR``) wait for
-the multi-device layer (ROADMAP Queue 1 #7) and raise here.
+``--ckpt-every`` steps (async) and at the end.
+
+``--mesh single|multi`` trains on the production mesh, (16, 16) or
+(2, 16, 16), one process per rank, under torchrun's environment
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``: the
+reference's ``JAX_COORDINATOR``); the world size must be the mesh's.
+Every rank builds the same masters and batches; ``train_step.place_state``
+shards them (ZeRO-1 moments) and the steps run under ``use_mesh``.  The
+process group is NCCL for ``cuda`` and gloo for ``cpu``; one already
+started by the caller is used as it is.  Checkpoints hold the full
+tensors, written by rank 0.
 """
 
 from __future__ import annotations
@@ -22,15 +30,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.core.words import resolve_device
+from repro_torch.distribution import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.fault import DeterministicSchedule
 from repro_torch.training import optimizer as O
-from repro_torch.training.train_step import make_train_step
+from repro_torch.training.train_step import make_train_step, place_state
 
 
 def synthetic_batch(cfg: ModelConfig, seed: int, step: int, batch: int,
@@ -69,11 +79,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none" or os.environ.get("JAX_COORDINATOR"):
-        raise NotImplementedError(
-            "multi-device training (--mesh, JAX_COORDINATOR) is not ported "
-            "yet (ROADMAP.md, Queue 1 #7)")
     dev = resolve_device(args.device)
+    mesh = _production_mesh(args.mesh, dev) if args.mesh != "none" else None
     cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
     print(f"arch={cfg.name} family={cfg.family} "
           f"params={cfg.param_count/1e6:.1f}M (smoke={args.smoke})")
@@ -92,25 +99,64 @@ def main(argv=None):
         params, state = restored["p"], restored["o"]
         print(f"restored checkpoint at step {start}")
 
-    losses = []
-    t0 = time.time()
-    for s in range(start, args.steps):
-        params, state, stats = step_fn(params, state, synthetic_batch(
-            cfg, args.seed, s, args.batch, args.seq, dev))
-        losses.append(stats["loss"])
-        if s % 10 == 0 or s == args.steps - 1:
-            dt = time.time() - t0
-            tok_s = (s - start + 1) * args.batch * args.seq / max(dt, 1e-9)
-            print(f"step {s:5d} loss {float(stats['loss']):.4f} "
-                  f"gnorm {float(stats['grad_norm']):.3f} "
-                  f"lr {float(stats['lr']):.2e} tok/s {tok_s:.0f}",
-                  flush=True)
-        if mgr is not None and (s + 1) % args.ckpt_every == 0:
-            mgr.save(s + 1, {"p": params, "o": state})
-    if mgr is not None:
-        mgr.save(args.steps, {"p": params, "o": state})
-        mgr.wait()
-    return [float(x) for x in losses]
+    lead = mesh is None or dist.get_rank() == 0
+
+    def save(step):
+        tree = SH.gather({"p": params, "o": state})   # every rank takes part
+        if lead:
+            mgr.save(step, tree)
+
+    def run():
+        nonlocal params, state
+        losses = []
+        t0 = time.time()
+        for s in range(start, args.steps):
+            params, state, stats = step_fn(params, state, synthetic_batch(
+                cfg, args.seed, s, args.batch, args.seq, dev))
+            losses.append(stats["loss"])
+            if lead and (s % 10 == 0 or s == args.steps - 1):
+                dt = time.time() - t0
+                tok_s = (s - start + 1) * args.batch * args.seq / max(dt,
+                                                                     1e-9)
+                print(f"step {s:5d} loss {float(stats['loss']):.4f} "
+                      f"gnorm {float(stats['grad_norm']):.3f} "
+                      f"lr {float(stats['lr']):.2e} tok/s {tok_s:.0f}",
+                      flush=True)
+            if mgr is not None and (s + 1) % args.ckpt_every == 0:
+                save(s + 1)
+        if mgr is not None:
+            save(args.steps)
+            mgr.wait()
+        return [float(x) for x in losses]
+
+    if mesh is None:
+        return run()
+    with SH.use_mesh(mesh):
+        params, state = place_state(cfg, opt_cfg, params, state)
+        return run()
+
+
+def _production_mesh(kind: str, dev: torch.device):
+    """The production mesh of ``--mesh kind`` over torchrun's process group
+    (started here from its environment unless the caller started one);
+    raises when the world size is not the mesh's."""
+    from repro_torch.launch.mesh import make_production_mesh
+    need = 512 if kind == "multi" else 256
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != need:
+        raise ValueError(f"--mesh {kind} needs a world of {need} ranks, "
+                         f"this one has {world}")
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=(f"tcp://{os.environ['MASTER_ADDR']}:"
+                         f"{os.environ['MASTER_PORT']}"),
+            rank=int(os.environ["RANK"]), world_size=world)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    return make_production_mesh(multi_pod=kind == "multi",
+                                device_type=dev.type)
 
 
 if __name__ == "__main__":

@@ -5,14 +5,16 @@ One ``ModelConfig`` describes the transformer backbone of every family
 carry the expert and state-space parts.  Modality frontends (musicgen's
 EnCodec, llava's vision tower) are stubs, as in the reference: those
 configs (``frontend="embed"``) take precomputed (B, S, E) embeddings.
-``input_specs`` is not ported: it builds JAX shape stand-ins for the
-reference's dry-run.
+``input_specs`` gives a step's inputs as meta tensors (shapes and dtypes,
+no storage) for ``launch.dryrun``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,3 +150,24 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
         return False, ("pure full-attention arch: 500k-token decode needs "
                        "sub-quadratic attention")
     return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                dtype=torch.bfloat16) -> dict:
+    """Meta-tensor stand-ins for every model input of a step (no
+    allocation): the dry-run contract.  Modality frontends are stubs: for
+    ``frontend="embed"`` configs the spec carries precomputed embeddings."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        x = (meta((B, S, cfg.d_model), dtype) if cfg.frontend == "embed"
+             else meta((B, S), i32))
+        if shape.kind == "train":
+            return {"inputs": x, "labels": meta((B, S), i32)}
+        return {"inputs": x}
+    # decode: one new token id per sequence against a cache of seq_len
+    # (generated tokens are always ids embedded through the token embedding)
+    return {"inputs": meta((B,), i32)}

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution import sharding as SH
+
 F32 = torch.float32
 
 
@@ -99,6 +101,9 @@ def blockwise_attention(q, k, v, *, chunk: int, window: int = 0,
     skipping the chunk pairs above the diagonal (the reference's
     ``lax.cond``); the masked mode sees every key under the causal mask.
     """
+    if SH.is_dtensor(q):
+        return _blockwise_local(q, k, v, chunk=chunk, window=window,
+                                q_offset=q_offset, causal_skip=causal_skip)
     B, S_in, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -166,6 +171,24 @@ def blockwise_attention(q, k, v, *, chunk: int, window: int = 0,
 
     out = torch.stack([step(c) for c in range(nC)], 1)  # (B,nC,C,KVH,G,D)
     return out.reshape(B, nC * C, H, D)[:, :S_in].to(q.dtype)
+
+
+def _blockwise_local(q, k, v, **kw):
+    """``blockwise_attention`` under a mesh.  Attention is independent per
+    sequence and per group of heads sharing a kv head, so q, k and v are
+    placed alike, sharded at most on the batch and head dims (q's heads
+    as k's kv heads: each group whole on a rank), and every rank attends
+    over its own shard on plain tensors.  DTensor's own rules for the
+    loop's views and einsums differ between torch releases (some refuse a
+    sharded kv-head dim); autograd flows through both conversions."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = k.device_mesh
+    pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+               for p in k.placements)
+    q, k, v = (SH.to_placements(t, mesh, pl) for t in (q, k, v))
+    out = blockwise_attention(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return DTensor.from_local(out, mesh, pl, run_check=False,
+                              shape=q.shape, stride=q.stride())
 
 
 def decode_attention(q, k, v, seq_len, *, window: int = 0):
@@ -271,8 +294,9 @@ def _moe_aux(cfg, logits, topi):
     """Switch-style load-balance loss, returned for training."""
     m = cfg.moe
     me = torch.softmax(logits, -1).mean(0)
-    ce = torch.bincount(topi.reshape(-1), minlength=m.num_experts).to(F32) \
-        / topi.numel()
+    ids = topi.reshape(-1)
+    ce = torch.zeros(m.num_experts, dtype=torch.int64, device=ids.device) \
+        .scatter_add_(0, ids, torch.ones_like(ids)).to(F32) / topi.numel()
     return m.num_experts * (me * ce).sum()
 
 
@@ -287,6 +311,8 @@ def moe(cfg, p, x):
     renormalised top-k) gates; no token is dropped.  Expert groups are
     looped to bound the (T, NE_g, dff) transient.
     """
+    if SH.is_dtensor(x):
+        return _moe_gathered(cfg, p, x)
     m = cfg.moe
     B, S, E = x.shape
     T = B * S
@@ -323,6 +349,24 @@ def moe(cfg, p, x):
         * (sg * keep)[:, None]
     return (_moe_combine(contrib, st, T).reshape(B, S, E).to(dt),
             _moe_aux(cfg, logits, topi))
+
+
+def _moe_gathered(cfg, p, x):
+    """``moe`` under a mesh.  Its dispatch (argsort, searchsorted, masked
+    scatters) has no DTensor sharding rules, so the tokens and the router
+    and expert weights are replicated and every rank runs the layer on
+    plain local tensors; the results come back as replicated DTensors
+    (autograd flows through both conversions)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def local(t):
+        return t.redistribute(mesh, rep).to_local() if SH.is_dtensor(t) else t
+    lp = {k: local(p[k]) for k in ("router", "we_gate", "we_up", "we_down")}
+    out, aux = moe(cfg, lp, local(x))
+    return (DTensor.from_local(out, mesh, rep, run_check=False),
+            DTensor.from_local(aux, mesh, rep, run_check=False))
 
 
 def _moe_combine(contrib, st, T):

@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distribution.sharding import shard
+
 F32 = torch.float32
 
 
@@ -186,8 +188,8 @@ def ssd_decode(cfg, p, x, state, apply_out: bool = True):
     xhp = xc.reshape(B_, nheads, P)
     dt = F.softplus(dtr.to(F32) + p["dt_bias"].to(F32))       # (B,H)
     a = torch.exp(dt * -torch.exp(p["A_log"].to(F32)))        # (B,H)
-    S_new = state["S"] * a[..., None, None] + torch.einsum(
-        "bh,bn,bhp->bhnp", dt, Bv, xhp)
+    S_new = shard(state["S"] * a[..., None, None] + torch.einsum(
+        "bh,bn,bhp->bhnp", dt, Bv, xhp), "batch", "ssm_heads", None, None)
     y = torch.einsum("bn,bhnp->bhp", Cv, S_new)
     y = y + xhp * p["D"].to(F32)[None, :, None]
     y = _gated_norm(y.reshape(B_, d_inner), z, p)

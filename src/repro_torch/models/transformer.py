@@ -7,12 +7,16 @@ family shares this file: dense / moe / audio / vlm are one block shape;
 hybrid (hymba) adds parallel SSM heads fused with the attention heads;
 ssm (mamba2) drops attention.  Hybrid full-attention layers sit at
 {0, L//2, L-1} (``layer_segments``); the others attend over a sliding
-window.  The reference's ``shard(...)`` constraints are single-device
-no-ops and are dropped (``param_logical_axes`` waits for the multi-device
-layer).  Matrices that the reference casts to the model's dtype at every
-use (``CAST_LEAVES``) are stored in that dtype, which gives the values
-the reference computes; norm scales, the router, the SSM's decay and
-skip vectors and the LM head are read in float32 and stay so.  Training
+window.  Activations carry the reference's logical-axis constraints
+(``distribution.sharding.shard``: the identity without a mesh, a DTensor
+redistribution under ``use_mesh``); ``param_logical_axes`` names each
+parameter's axes.  The paged decode's kernel reads the pools in place,
+so the reference's constraint on the gathered pages has a counterpart
+on the merged path only.  Matrices that the reference casts to the
+model's dtype at every use (``CAST_LEAVES``) are stored in that dtype,
+which gives the values the reference computes; norm scales, the router,
+the SSM's decay and skip vectors and the LM head are read in float32
+and stay so.  Training
 keeps float32 masters of every leaf, as the reference does
 (``init_params`` / ``convert.params_from_numpy`` with ``master_dtype``):
 the forward casts each leaf where it is used, so gradients reach the
@@ -38,6 +42,8 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch.distribution import sharding as SH
+from repro_torch.distribution.sharding import shard
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -175,6 +181,46 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     return params
 
 
+def param_logical_axes(cfg: ModelConfig, params: dict) -> dict:
+    """Mirror of ``params`` with logical-axis tuples per leaf."""
+    ax = {
+        "embed": ("vocab", "embed"),
+        "final_scale": ("embed",),
+        "final_bias": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
+    bl = {
+        "ln1_scale": ("layers", "embed"), "ln1_bias": ("layers", "embed"),
+        "ln2_scale": ("layers", "embed"), "ln2_bias": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+        "bq": ("layers", "heads"), "bk": ("layers", "kv_heads"),
+        "bv": ("layers", "kv_heads"),
+        "router": ("layers", "embed", None),
+        "we_gate": ("layers", "experts", "embed", "expert_mlp"),
+        "we_up": ("layers", "experts", "embed", "expert_mlp"),
+        "we_down": ("layers", "experts", "expert_mlp", "embed"),
+        "w_gate": ("layers", "embed", "mlp"),
+        "w_up": ("layers", "embed", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+        "ssm_in_proj": ("layers", "embed", "ssm_inner"),
+        "ssm_conv_w": ("layers", None, None),
+        "ssm_conv_b": ("layers", None),
+        "ssm_A_log": ("layers", None), "ssm_D": ("layers", None),
+        "ssm_dt_bias": ("layers", None),
+        "ssm_ssm_norm": ("layers", "ssm_inner"),
+        "ssm_out_proj": ("layers", "ssm_inner", "embed"),
+        "fuse_attn_scale": ("layers", "heads"),
+        "fuse_ssm_scale": ("layers", "ssm_inner"),
+        "w_fuse": ("layers", "heads", "embed"),
+    }
+    out = {k: ax[k] for k in params if k != "blocks"}
+    out["blocks"] = {k: bl[k] for k in params["blocks"]}
+    return out
+
+
 def layer_params(params: dict, layer: int) -> dict:
     """One layer's slice of the stacked block parameters (views)."""
     return {k: v[layer] for k, v in params["blocks"].items()}
@@ -219,6 +265,32 @@ def layer_windows(cfg: ModelConfig) -> List[int]:
 # block forward (prefill / training forward)
 # ---------------------------------------------------------------------------
 
+def _split_heads(x, n: int, D: int, name: str):
+    """(B, ..., n * D) -> (B, ..., n, D).  Under a mesh the last dim is
+    first placed as the heads will be: DTensor cannot split a dim sharded
+    into chunks that do not hold whole heads (the head count not divisible
+    by the model axis, as GQA's kv heads), so it is replicated there."""
+    lead = tuple(x.shape[:-1])
+    if SH.is_dtensor(x):
+        mid = (None,) * (len(lead) - 1)
+        spec = SH.logical_spec("batch", *mid, name, None,
+                               size_of=lead + (n, D))
+        x = shard(x, "batch", *mid, name if spec[-2] else None)
+    return x.reshape(*lead, n, D)
+
+
+def _merge_heads(x):
+    """(B, S, n, D) -> (B, S, n * D); under a mesh the merged dim keeps the
+    heads' placement, so the backward hands the view a gradient it can
+    split (see ``_split_heads``)."""
+    B, Sq, n, D = x.shape
+    out = x.reshape(B, Sq, n * D)
+    if SH.is_dtensor(out):
+        spec = SH.logical_spec("batch", None, "heads", None, size_of=x.shape)
+        out = shard(out, "batch", None, "heads" if spec[2] else None)
+    return out
+
+
 def _attn_heads(cfg, p, x, positions, window):
     """Projection + rope + blockwise attention; returns concat head outputs
     (B, S, H*D) WITHOUT the output projection, plus (k, v) for cache fills."""
@@ -231,15 +303,21 @@ def _attn_heads(cfg, p, x, positions, window):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, Sq, H, D)
-    k = k.reshape(B, Sq, KVH, D)
-    v = v.reshape(B, Sq, KVH, D)
+    q = _split_heads(q, H, D, "heads")
+    k = _split_heads(k, KVH, D, "kv_heads")
+    v = _split_heads(v, KVH, D, "kv_heads")
+    if cfg.constrain_qkv:
+        # seq is NOT bound here: under sequence parallelism the residual
+        # stream is seq-sharded but attention runs on the gathered sequence
+        q = shard(q, "batch", None, "heads", None)
+        k = shard(k, "batch", None, "kv_heads", None)
+        v = shard(v, "batch", None, "kv_heads", None)
     if cfg.rope:
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
     out = L.blockwise_attention(q, k, v, chunk=cfg.attn_chunk, window=window,
                                 causal_skip=cfg.attn_mode == "causal_skip")
-    return out.reshape(B, Sq, H * D), (k, v)
+    return _merge_heads(out), (k, v)
 
 
 def _ssm_part(cfg, p, h, apply_out: bool):
@@ -270,8 +348,13 @@ def _block_fwd(cfg: ModelConfig, x, p, window: int):
     if cfg.family == "hybrid":
         h = L.apply_norm(cfg, p, "ln1", x)
         attn, _ = _attn_heads(cfg, p, h, positions, window)
-        y_ssm = _ssm_part(cfg, p, h, apply_out=False)
-        x = x + _fuse(cfg, p, attn, y_ssm, x.dtype)
+        # the SSM heads' output keeps its own placement (ssm_inner): the
+        # backward then brings the fused gradient back to it before the
+        # SSM splits its heads (see ``_split_heads``)
+        y_ssm = shard(_ssm_part(cfg, p, h, apply_out=False),
+                      "batch", "seq", "ssm_inner")
+        x = x + shard(_fuse(cfg, p, attn, y_ssm, x.dtype),
+                      "batch", "seq", "embed")
         x = x + L.mlp(cfg, p, L.apply_norm(cfg, p, "ln2", x))
         return x, aux
 
@@ -285,7 +368,7 @@ def _block_fwd(cfg: ModelConfig, x, p, window: int):
     # dense / moe / audio / vlm
     h = L.apply_norm(cfg, p, "ln1", x)
     attn, _ = _attn_heads(cfg, p, h, positions, window)
-    x = x + attn @ p["wo"].to(x.dtype)
+    x = x + shard(attn @ p["wo"].to(x.dtype), "batch", "seq", "embed")
     out, aux = ffn(cfg, p, L.apply_norm(cfg, p, "ln2", x))
     return x + out, aux
 
@@ -294,8 +377,30 @@ def embed(cfg: ModelConfig, params: dict, inputs):
     """Token ids (..., ) -> embeddings, or precomputed embeds cast."""
     dt = _dtype(cfg)
     if inputs.dtype in (torch.int32, torch.int64):
+        if SH.is_dtensor(inputs):
+            return _embed_local(params["embed"], inputs).to(dt)
         return params["embed"][inputs].to(dt)
     return inputs.to(dt)
+
+
+def _embed_local(table, ids):
+    """The embedding gather under a mesh: the (vocab-sharded) table is
+    replicated and every rank gathers the rows of its own ids; the local
+    table's gradient is partial over the mesh dims that shard the ids.
+    (DTensor's rule for the gather's backward, an accumulating
+    ``index_put``, fails in some torch releases.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = ids.device_mesh
+    grad = [Partial() if isinstance(p, Shard) else Replicate()
+            for p in ids.placements]
+    local = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=grad)
+    out = local[ids.to_local()]
+    shape = tuple(ids.shape) + (table.shape[1],)
+    return DTensor.from_local(out, mesh, ids.placements, run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 def final_norm(cfg: ModelConfig, params: dict, x):
@@ -342,7 +447,7 @@ def forward(cfg: ModelConfig, params: dict, inputs):
     """Token (B, S) / embedding (B, S, E) inputs -> (hidden (B,S,E), moe
     aux scalar).  Each layer runs with its segment's static window, under
     ``cfg.remat``."""
-    x = embed(cfg, params, inputs)
+    x = shard(embed(cfg, params, inputs), "batch", "seq", "embed")
     aux = torch.zeros((), dtype=F32, device=x.device)
     for layer, window in enumerate(layer_windows(cfg)):
         def block(x, p, _w=window):
@@ -358,7 +463,9 @@ def logits_fn(cfg: ModelConfig, params: dict, x) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab:    # mask padding ids everywhere
         live = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab
         logits = torch.where(live, logits, -1e30)
-    return logits
+    if logits.dim() == 3:
+        return shard(logits, "batch", None, "vocab")
+    return shard(logits, "batch", "vocab")
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
@@ -369,7 +476,10 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     logits = logits_fn(cfg, params, x)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    # DTensor's gather along a vocab-sharded dim mis-reduces its masked
+    # partial: the gold logits are read from the vocab gathered per rank
+    gold = torch.gather(shard(logits, "batch", None, None), -1,
+                        labels[..., None])[..., 0]
     ce = torch.mean(logz - gold)
     zloss = 1e-4 * torch.mean(torch.square(logz))
     moe_w = 1e-2 if cfg.moe is not None else 0.0
@@ -398,9 +508,9 @@ def _qkv_step(cfg, p, h, positions):
     if cfg.qkv_bias:
         q, k, v = (q + p["bq"].to(h.dtype), k + p["bk"].to(h.dtype),
                    v + p["bv"].to(h.dtype))
-    q = q.reshape(B, H, D)
-    k = k.reshape(B, KVH, D)
-    v = v.reshape(B, KVH, D)
+    q = _split_heads(q, H, D, "heads")
+    k = _split_heads(k, KVH, D, "kv_heads")
+    v = _split_heads(v, KVH, D, "kv_heads")
     return (*_rope_step(cfg, q, k, positions), v)
 
 
@@ -422,8 +532,15 @@ def _merged_attention(geom, q, kpool, vpool, kscale, vscale, page_table,
         kg = KC.dequant(kg, kscale[pt], dtype)
         vg = KC.dequant(vg, vscale[pt], dtype)
     T_ = geom.max_pages * geom.page_size
-    kf = kg.movedim(3, 2).reshape(B, T_, geom.kv_heads, geom.head_dim)
-    vf = vg.movedim(3, 2).reshape(B, T_, geom.kv_heads, geom.head_dim)
+
+    def merged(g):
+        """(B, MAXP, KVH, PS, D) -> (B, T, KVH, D), constrained as the
+        reference's (DS, Bl, MAXP, PS, KVH, D) view."""
+        g = g.reshape(geom.shards, geom.batch_per_shard, *g.shape[1:])
+        g = shard(g.movedim(4, 3), "kv_shard", None, None, "page_tokens",
+                  None, None)
+        return g.reshape(B, T_, geom.kv_heads, geom.head_dim)
+    kf, vf = merged(kg), merged(vg)
     return L.decode_attention(q, kf, vf, lens)
 
 
@@ -470,7 +587,7 @@ def paged_layers(cfg: ModelConfig, params: dict, tokens, cache, geom,
     """The decode step's layer stack: tokens (B,) -> hidden (B, E) before
     the final norm.  ``page_table``: ``lookup_pages``' (DS, Bl, MAXP)."""
     pt = KC.flat_page_table(geom, page_table)
-    x = embed(cfg, params, tokens)
+    x = shard(embed(cfg, params, tokens), "batch", "embed")
     quant = cache.kscale is not None
     for layer in range(cfg.n_layers):
         x = _paged_layer_step(
@@ -495,7 +612,7 @@ def ssm_decode_step(cfg: ModelConfig, params: dict, tokens, cache):
     """SSM decode: O(1) recurrent state per layer.  cache: {"S", "conv",
     "seq_lens"} with leading layer dims on S/conv, updated in place;
     returns (logits (B, V), the cache with ``seq_lens`` + 1)."""
-    x = embed(cfg, params, tokens)
+    x = shard(embed(cfg, params, tokens), "batch", "embed")
     for layer in range(cfg.n_layers):
         p = layer_params(params, layer)
         h = L.apply_norm(cfg, p, "ln1", x)
@@ -511,6 +628,20 @@ def ssm_decode_step(cfg: ModelConfig, params: dict, tokens, cache):
                                            seq_lens=cache["seq_lens"] + 1)
 
 
+def _write_token(buf, rows, pos, val) -> None:
+    """``buf[rows, pos] = val`` in place (buf: (B, T, KVH, D)).  Under a
+    mesh the token dim is sharded and DTensor has no in-place rule for
+    that scatter: the buffer is rebuilt out of place under a one-hot mask
+    of the positions and copied back."""
+    if SH.is_dtensor(buf):
+        hit = torch.arange(buf.shape[1], device=pos.device)[None] \
+            == pos[:, None]
+        buf.copy_(torch.where(hit[:, :, None, None],
+                              val[:, None].to(buf.dtype), buf))
+        return
+    buf[rows, pos] = val.to(buf.dtype)
+
+
 def ring_slot(seq_lens, window: int):
     """A windowed layer's ring-buffer slot for the token at ``seq_lens``."""
     return seq_lens % window
@@ -522,7 +653,7 @@ def hybrid_decode_step(cfg: ModelConfig, params: dict, tokens, cache):
     their static windows.  The cache is updated in place; returns (logits
     (B, V), the cache with ``seq_lens`` + 1).  Rope is applied at the
     absolute position before a k is cached."""
-    x = embed(cfg, params, tokens)
+    x = shard(embed(cfg, params, tokens), "batch", "embed")
     seq_lens = cache["seq_lens"]                            # (B,)
     B = x.shape[0]
     W = cfg.window
@@ -535,14 +666,14 @@ def hybrid_decode_step(cfg: ModelConfig, params: dict, tokens, cache):
         if window:                                          # ring buffer
             kc, vc = cache["ring_k"][wi], cache["ring_v"][wi]
             slot = ring_slot(seq_lens, W).long()
-            kc[rows, slot] = k.to(kc.dtype)
-            vc[rows, slot] = v.to(vc.dtype)
+            _write_token(kc, rows, slot, k)
+            _write_token(vc, rows, slot, v)
             attn = L.decode_attention(q, kc, vc, seq_lens + 1, window=W)
             wi += 1
         else:                                               # global linear
             kc, vc = cache["glob_k"][gi], cache["glob_v"][gi]
-            kc[rows, seq_lens.long()] = k.to(kc.dtype)
-            vc[rows, seq_lens.long()] = v.to(vc.dtype)
+            _write_token(kc, rows, seq_lens.long(), k)
+            _write_token(vc, rows, seq_lens.long(), v)
             attn = L.decode_attention(q, kc, vc, seq_lens + 1)
             gi += 1
         st = {"S": cache["S"][layer], "conv": cache["conv"][layer]}

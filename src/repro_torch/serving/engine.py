@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core.hashfn import fold_u32, mix_pair
 from repro_torch.core.words import to_i32
+from repro_torch.distribution.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -89,7 +90,7 @@ def prefill(cfg: ModelConfig, geom: KC.PageGeometry, params: dict,
     KVH = geom.kv_heads
     dev = cache.kpool.device
 
-    x = T.embed(cfg, params, inputs)
+    x = shard(T.embed(cfg, params, inputs), "batch", "seq", "embed")
     positions = torch.arange(S, device=dev)[None]
     # deterministic physical layout for prompt pages: seq-major
     phys = (torch.arange(Bl * npages, dtype=I32, device=dev)
@@ -108,7 +109,7 @@ def prefill(cfg: ModelConfig, geom: KC.PageGeometry, params: dict,
         p = T.layer_params(params, layer)
         h = L.apply_norm(cfg, p, "ln1", x)
         attn, (k, v) = T._attn_heads(cfg, p, h, positions, cfg.window)
-        x = x + attn @ p["wo"].to(x.dtype)
+        x = x + shard(attn @ p["wo"].to(x.dtype), "batch", "seq", "embed")
         x = x + T.ffn(cfg, p, L.apply_norm(cfg, p, "ln2", x))[0]
         # bulk page fill: (B,S,KVH,D) -> (DS,Bl*NP,KVH,PS,D) -> pool scatter
         for pools, scales, kv in ((cache.kpool, cache.kscale, k),

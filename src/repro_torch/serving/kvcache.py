@@ -150,6 +150,27 @@ def create_cache(g: PageGeometry) -> PagedCache:
         seq_lens=zeros(DS, Bl), cur_page=zeros(DS, Bl), cur_off=zeros(DS, Bl))
 
 
+def _stacked_axes(table: Any, axis: str):
+    """Logical axes of one shard's store table as the reference stacks it
+    (a leading shard dim on every leaf): ``(axis, None, ..., None)``."""
+    return type(table)(*((axis,) + (None,) * leaf.dim() for leaf in table))
+
+
+def cache_logical_axes(g: PageGeometry, cache: PagedCache):
+    """Logical-axis tree matching ``cache`` (see distribution.sharding);
+    ``table`` holds the axes of the reference's stacked (DS, ...) table."""
+    pool_ax = ("layers", "kv_shard", None, "kv_heads_dec", "page_tokens", None)
+    return PagedCache(
+        kpool=pool_ax, vpool=pool_ax,
+        kscale=None if cache.kscale is None else pool_ax[:-1] + (None,),
+        vscale=None if cache.vscale is None else pool_ax[:-1] + (None,),
+        table=_stacked_axes(cache.table[0], "kv_shard"),
+        next_free=("kv_shard",),
+        seq_ids=("kv_shard", None), seq_lens=("kv_shard", None),
+        cur_page=("kv_shard", None), cur_off=("kv_shard", None),
+    )
+
+
 # -- page-key construction ---------------------------------------------------
 
 def page_keys(seq_ids: torch.Tensor, logical_pages: torch.Tensor) -> torch.Tensor:
@@ -308,3 +329,15 @@ def create_state_cache(cfg: ModelConfig, batch: int, max_seq: int,
             glob_v=zeros((n_glob, batch, max_seq, KVH, D), dtype),
         )
     return cache
+
+
+def state_cache_logical_axes(cfg: ModelConfig, cache: dict) -> dict:
+    ax = {
+        "S": ("layers", "batch", "ssm_heads", None, None),
+        "conv": ("layers", "batch", None, None),
+        "seq_lens": ("batch",),
+    }
+    if "ring_k" in cache:
+        win = ("layers", "batch", "page_tokens", "kv_heads_dec", None)
+        ax.update(ring_k=win, ring_v=win, glob_k=win, glob_v=win)
+    return ax

@@ -1,5 +1,5 @@
 """Training substrate: AdamW, the train step with microbatching, schedules.
 
-Port of ``repro.training``; ZeRO-1 (``opt_logical_axes``) waits for the
-multi-device layer (ROADMAP Queue 1 #7).
+Port of ``repro.training``, ZeRO-1's ``opt_logical_axes`` and the sharded
+step under ``distribution.sharding.use_mesh`` included.
 """

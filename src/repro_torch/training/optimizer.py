@@ -11,8 +11,11 @@ decay and bias correction in another order, so its rounding differs.
 
 ``apply_updates`` writes the parameters and moments IN PLACE (a copy of
 the state of 1.9 B parameters would need 23 GB more on the card) and
-returns the same trees with a new ``OptState``.  ZeRO-1's
-``opt_logical_axes`` waits for the multi-device layer (ROADMAP #7).
+returns the same trees with a new ``OptState``.  Under a mesh the
+leaves are DTensors: ``opt_logical_axes`` places the moments (ZeRO-1
+over the data axis), and each leaf's update runs in its moments'
+placements, the gradient redistributed to them and the new value back to
+the parameter's.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import math
 from typing import Iterator, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.distribution import sharding as SH
 
 F32 = torch.float32
 
@@ -104,6 +109,8 @@ def apply_updates(cfg: OptConfig, params, grads, state: OptState):
     c2 = 1 - cfg.b2 ** step.to(F32)
 
     def upd(p, g, m, v):
+        if SH.is_dtensor(m):
+            g = SH.to_placements(g, m.device_mesh, m.placements)
         g = g.to(F32) * scale
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
@@ -112,7 +119,34 @@ def apply_updates(cfg: OptConfig, params, grads, state: OptState):
         step_dir = mh / (torch.sqrt(vh) + cfg.eps)
         wd = cfg.weight_decay if p.dim() >= 2 else 0.0
         pf = p.to(F32)
+        if SH.is_dtensor(m):
+            pf = SH.to_placements(pf, m.device_mesh, m.placements)
+            new = pf - lr * (step_dir + wd * pf)
+            p.copy_(SH.to_placements(new, p.device_mesh, p.placements))
+            return
         p.copy_(pf - lr * (step_dir + wd * pf))
     tree_map(upd, params, grads, state.m, state.v)
     return params, OptState(state.m, state.v, step), {"grad_norm": gn,
                                                       "lr": lr}
+
+
+def opt_logical_axes(param_axes: dict, params, data_extent: int,
+                     zero1: bool) -> dict:
+    """Logical axes for m/v: param axes + ZeRO-1 sharding over the data axis
+    on the largest divisible dim whose logical name maps to NO mesh axis
+    (i.e. a dim the TP rules leave replicated)."""
+    rules = SH.get_rules()
+
+    def leaf(ax, p):
+        ax = tuple(ax) if ax else (None,) * len(p.shape)
+        if not zero1:
+            return ax
+        best, best_dim = -1, -1
+        for i, (name, dim) in enumerate(zip(ax, p.shape)):
+            free = name is None or not rules.get(name)
+            if free and dim % data_extent == 0 and dim > best:
+                best, best_dim = dim, i
+        if best_dim < 0:
+            return ax
+        return tuple("zero" if i == best_dim else n for i, n in enumerate(ax))
+    return tree_map(leaf, param_axes, params)

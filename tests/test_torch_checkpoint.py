@@ -240,11 +240,16 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
     assert len(more) == 3 and CheckpointManager(ck).latest_step() == 9
 
 
-@pytest.mark.parametrize("argv,env", [(["--mesh", "single"], {}),
-                                      ([], {"JAX_COORDINATOR": "host:1"})])
-def test_launcher_multi_device_waits_for_its_slice(argv, env, monkeypatch):
+@pytest.mark.parametrize("argv,env,match", [
+    (["--mesh", "single"], {}, "256 ranks, this one has 1"),
+    (["--mesh", "multi"], {"WORLD_SIZE": "4"}, "512 ranks, this one has 4")])
+def test_launcher_multi_device_waits_for_its_slice(argv, env, match,
+                                                   monkeypatch):
+    """The multi-device launch (torchrun's environment in place of the
+    reference's JAX_COORDINATOR) refuses a world that is not its mesh's."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="#7"):
+    with pytest.raises(ValueError, match=match):
         launch_train.main(["--arch", "yi-6b", "--smoke", "--device", "cpu"]
                           + argv)

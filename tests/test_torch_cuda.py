@@ -1573,3 +1573,126 @@ def test_checkpoint_from_card_restores_onto_card(dev, tmp_path):
     for k, t in O.leaves(got["p"]):
         assert t.device.type == "cuda"
         assert torch.equal(t, saved[k]), k
+
+
+def routed_case(seed, P, N, dev):
+    """A local ext-free table with live items (random words, random
+    indicator bits) and N routed entries over its pairs: inserts,
+    updates, deletes of present and absent keys, one key repeated, dead
+    and no-op entries; (cfg, table, (pair, parity, op, keys, vals, live))."""
+    rng = np.random.RandomState(seed)
+    cfg = ch.ContinuityConfig(num_buckets=2 * P, ext_frac=0.0)
+    S = cfg.slots_per_pair
+    fields = {f: np.asarray(v) for f, v in convert.table_to_numpy(
+        ch.create(cfg, "cpu")).items()}
+    fields["keys"] = rng.randint(0, 2 ** 32, (P, S, 4), dtype=np.uint64)
+    fields["vals"] = rng.randint(0, 2 ** 32, (P, S, 4), dtype=np.uint64)
+    fields["indicator"] = rng.randint(0, 2 ** 20, P, dtype=np.uint64)
+    fields["version"] = rng.randint(0, 2 ** 32, P, dtype=np.uint64)
+    fields = {k: (v.astype(np.uint32) if v.dtype == np.uint64 else v)
+              for k, v in fields.items()}
+    table = convert.table_from_numpy(fields, dev)
+    pair = rng.randint(0, P, N)
+    k = rng.randint(0, 2 ** 32, (N, 4), dtype=np.uint64)
+    present = rng.rand(N) < 0.5
+    k[present] = fields["keys"][pair[present], rng.randint(0, S, N)[present]]
+    k[N // 2:N // 2 + 8] = k[0]
+    pair[N // 2:N // 2 + 8] = pair[0]
+    parity = rng.randint(0, 2, N)
+    parity[N // 2:N // 2 + 8] = parity[0]
+    ent = (torch.from_numpy(pair.astype(np.int32)).to(dev),
+           torch.from_numpy(parity.astype(np.int32)).to(dev),
+           torch.from_numpy(rng.randint(0, 4, N).astype(np.int32)).to(dev),
+           words(k, dev), words(rng.randint(0, 2 ** 32, (N, 4),
+                                            dtype=np.uint64), dev),
+           torch.from_numpy(rng.rand(N) < 0.9).to(dev))
+    return cfg, table, ent
+
+
+@pytest.mark.parametrize("seed,P,N", [(0, 4, 96), (1, 64, 4_096),
+                                      (2, 1_024, 33), (3, 2, 512)])
+def test_routed_walk_matches_plain(dev, seed, P, N):
+    cfg, table, ent = routed_case(seed, P, N, dev)
+    host = ch.ContinuityTable(*(t.cpu() for t in table))
+    want = scan_walk.routed_write(cfg, host, *(t.cpu() for t in ent))
+    outs = []
+    for _ in range(2):                      # bit-identical on relaunch
+        t = ch.ContinuityTable(*(x.clone() for x in table))
+        n0 = scan_walk.scan_walk.launches
+        status = scan_walk.routed_write(cfg, t, *ent)
+        assert scan_walk.scan_walk.launches == n0 + 1
+        outs.append((status.cpu(), convert.table_to_numpy(t)))
+    mine = convert.table_to_numpy(host)
+    for status, fields in outs:
+        assert torch.equal(status, want)
+        for f, a in mine.items():
+            if a is not None:
+                assert np.array_equal(fields[f], a), f
+    assert 0 < int(want.sum()) < N
+
+
+def test_routed_walk_rejects_what_it_does_not_take(dev):
+    cfg, table, ent = routed_case(0, 4, 8, dev)
+    with pytest.raises(ValueError):
+        scan_walk.routed_write(ch.ContinuityConfig(num_buckets=8), table,
+                               *ent)
+    with pytest.raises(ValueError):
+        scan_walk.routed_write(cfg, table, *ent[:5], ent[5].int())
+    n0 = scan_walk.scan_walk.launches
+    out = scan_walk.routed_write(cfg, table, *(t[:0] for t in ent))
+    assert out.shape == (0,) and scan_walk.scan_walk.launches == n0
+
+
+def test_world1_nccl_store_equals_unsharded_store(dev):
+    """The sharded store on a world-1 NCCL group: inserts to load 0.6,
+    updates and deletes, every key read back equal to the unsharded
+    store's table of the same geometry driven by the same acknowledged
+    writes."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        scfg = D.StoreConfig(table=ch.ContinuityConfig(num_buckets=2 ** 12,
+                                                       ext_frac=0.0),
+                             num_shards=1)
+        mesh = make_debug_mesh((1,), ("data",), device_type="cuda")
+        write, lookup = D.make_write(scfg, mesh), D.make_lookup(scfg, mesh)
+        table = D.create_sharded(scfg, "cuda")
+        rng = np.random.RandomState(5)
+        N = int(0.6 * 2 ** 11 * 16)
+        keys = words(rng.randint(0, 2 ** 32, (N, 4), dtype=np.uint64), dev)
+        vals = words(rng.randint(0, 2 ** 32, (N, 4), dtype=np.uint64), dev)
+        ins = torch.full((N,), D.OP_INSERT, dtype=torch.int32, device=dev)
+        _, ok, routed = write(table, ins, keys, vals)
+        assert bool(routed.all()) and 0.99 * N < int(ok.sum()) <= N
+        upd = torch.full((N,), D.OP_UPDATE, dtype=torch.int32, device=dev)
+        upd[N // 2:] = D.OP_DELETE
+        vals2 = vals.flip(0).contiguous()
+        _, ok2, _ = write(table, upd, keys, vals2)
+        assert int(D.sharded_count(table)) == \
+            int(ok.sum()) - int((ok2 & (upd == D.OP_DELETE)).sum())
+        r = lookup(table, keys)
+        # the unsharded store: the acknowledged inserts, then the
+        # acknowledged updates and deletes
+        store = api.make_store("continuity", num_buckets=2 ** 12,
+                               ext_frac=0.0, stash_frac=0.0, device="cuda")
+        flat = store.create()
+        _, res = store.insert(flat, keys[ok], vals[ok])
+        assert bool(res.ok.all())
+        half = torch.arange(N, device=dev) < N // 2
+        _, res = store.update(flat, keys[ok2 & half], vals2[ok2 & half])
+        assert bool(res.ok.all())
+        _, res = store.delete(flat, keys[ok2 & ~half])
+        assert bool(res.ok.all())
+        want = store.lookup(flat, keys)
+        assert torch.equal(r.found, want.ok)
+        assert torch.equal(r.values[r.found], want.values[want.ok])
+        assert int(r.ledger.ops) == N and int(r.ledger.rdma_reads) == N
+    finally:
+        dist.destroy_process_group()
