@@ -116,6 +116,13 @@ Phases, in order:
    and ``scaled_dot_product_attention`` over the same tokens laid out
    densely; the float32 mode (the CUDA-core loop) at batch 32 held within
    2e-5 of its plain version and timed the same way, SDPA in float32.
+   The page-token slice mode (``slice_timing``) at the same B 32 shape:
+   each page's 16 tokens cut into m = 2 and 4 slices on one card, m slice
+   launches and the merge over every slice's partials, for the bf16 and
+   int8 routes held within the bf16 limit of the whole-page kernel and of
+   the plain version and timed (one slice's launch, and the m launches
+   with the merge) beside their bounds; with one slice bit-equal to the
+   whole-page launch; the float32 route within 2e-5 at m = 2.
 5. Serving Yi-6B at full width (32 layers, d 4096, 32/4 heads, vocab
    64,000; bf16 weights from a seeded generator, residual output
    projections scaled by 1/sqrt(2L)) through the port's ``launch/serve``
@@ -136,6 +143,8 @@ Phases, in order:
    weights.  The checks run outside the count: the launches reported are
    prefill's, the 63 steps' and the releases'.  The float32 twins'
    prefill and decode count the float32-q loop's launches, each from 0.
+   The prefill's and the first 2 steps' logits, the page tables after
+   them and the pools are kept for phase 7b (c).
 5b. Int8 KV pages at full width on phase 5's weights, launches counted
    from 0: an int8 geometry of phase 5's shape (page size 16, 4,224
    pages), the same 32 prompts prefilled and 31 greedy decode steps
@@ -214,7 +223,13 @@ Phases, in order:
    ``("data", "model")`` mesh (DTensor parameters and ZeRO-1 moments)
    against the same 2 steps unsharded: loss within 1e-3, every leaf atol
    2e-4 / rtol 2e-3 (``tests/test_distributed.py``'s tolerances); no
-   kernel launched.
+   kernel launched.  (c) Phase 5's Yi-6B serving (its bf16 weights drawn
+   again from its seed, its 32 prompts of 2,048 tokens, page size 16) on
+   a (1, 1) mesh, the cache this rank's shard (``kvcache.shard_cache``):
+   the prefill and 2 decode steps fed phase 5's greedy tokens, attention
+   through the kernel's slice mode and the merge; the logits, the page
+   tables and sequence fields and every written pool row equal phase 5's
+   bit for bit; one slice launch and one merge per layer per step.
 8. Report: one JSON line of every kernel's launches (the TPU kernels' on
    the serving path, phase 5; the serial walk's on the baselines path,
    phase 3c; probe and mutate also on the cluster path, phase 3f, as
@@ -223,7 +238,10 @@ Phases, in order:
    ``moe_launches``, on the training path, phase 7, as
    ``train_launches``, on the multi-device path, phase 7b (a), as
    ``dist_launches``, and the walk's routed mode timed there as the walk
-   row's ``routed``; attention's times at the moe path's decode
+   row's ``routed``; the slice mode as its own row,
+   ``paged_attention_slice``, with its launches (and the merge's) on the
+   multi-device serving path, phase 7b (c), and its times by route and
+   slice count under ``slices``; attention's times at the moe path's decode
    shape as ``moe_shape``; the int8 mode as its own row,
    ``int8_attention``, with its launches on the int8 path of phase 5b,
    and the merged path's attention launches as ``merged_launches``; the
@@ -292,6 +310,7 @@ CHASE_COLD_STEPS = 8_192       # ... from a cold L2 (few lines touched twice)
 E2E_SCHEMES = ("continuity", "level", "pfarm")
 E2E_SMALL = dict(num_records=800, num_ops=1000, batch=250)
 E2E_LARGE = dict(num_records=1_048_576, num_ops=65_536, batch=4_096)
+SLICES = (2, 4)                # page-token slices of phase 4's slice mode
 
 
 def _check(cond, what: str) -> None:
@@ -2231,6 +2250,18 @@ def _quantized(a):
     return (q, kq, vq, pt, lens), {"kscale": ks, "vscale": vs}
 
 
+def _dense(a):
+    """An attention case's query and live tokens laid out as a dense (B,
+    KVH, T, D) cache (every sequence of one length): the operands of
+    ``scaled_dot_product_attention``."""
+    q, kp, vp, pt, lens = a
+    _, KVH, PS, D = kp.shape
+    T_ = int(lens[0])
+    idx = pt[:, :-(-T_ // PS)].long()
+    return (q[:, :, None], *(x[idx].permute(0, 2, 1, 3, 4).reshape(
+        len(q), KVH, -1, D)[:, :, :T_].contiguous() for x in (kp, vp)))
+
+
 def attention_timing(torch, B, H, KVH, D, MAXP, NP, last, seed, card,
                      dtype=None):
     """The kernel at one decode shape (``B`` sequences of ``last`` tokens
@@ -2267,13 +2298,7 @@ def attention_timing(torch, B, H, KVH, D, MAXP, NP, last, seed, card,
     plain_ms = _device_ms(torch, lambda a: plain(*a), batches, 10,
                           PLAIN_SLEEP)
 
-    def dense(a):        # the same live tokens as a (B, KVH, T, D) cache
-        q, kp, vp, pt, lens = a
-        T_ = int(lens[0])
-        idx = pt[:, :-(-T_ // PS)].long()
-        return [x[idx].permute(0, 2, 1, 3, 4).reshape(len(q), KVH, -1, D)
-                [:, :, :T_].contiguous() for x in (kp, vp)]
-    dense_b = [(a[0][:, :, None], *dense(a)) for a in batches]
+    dense_b = [_dense(a) for a in batches]
     lib_ms = _device_ms(torch, lambda a: sdpa(*a, enable_gqa=True),
                         dense_b, 100, KERNEL_SLEEP)
     lib_out = sdpa(*dense_b[0], enable_gqa=True)[:, :, 0]
@@ -2377,6 +2402,145 @@ def attention_phase(torch, card) -> tuple:
     return row, f32_row
 
 
+def _slices(torch, a, kw, m):
+    """Each of ``m`` ranks' slice of every page of an attention case: [(its
+    operands, its int8 scales, its first token)], the pools cut (copies)."""
+    q, kp, vp, pt, lens = a
+    n = kp.shape[2] // m
+
+    def cut(t, r):
+        return t[:, :, r * n:(r + 1) * n].contiguous()
+    return [((q, cut(kp, r), cut(vp, r), pt, lens),
+             {k: cut(v, r) for k, v in kw.items()}, r * n)
+            for r in range(m)]
+
+
+def _run_slices(torch, sl, attend, merge):
+    """Every slice's partials (``attend``: the kernel's slice mode or its
+    plain version), merged in slice order (``merge``): what the model
+    group's ranks compute, the exchange between them aside."""
+    PS = sl[0][0][1].shape[2] * len(sl)
+    parts = [attend(*a, page_stride=PS, token_offset=off, **kw)
+             for a, kw, off in sl]
+    return merge(torch.cat([p[0] for p in parts], 2),
+                 torch.cat([p[1] for p in parts], 2), sl[0][0][0].dtype)
+
+
+def _slice_bytes(mode, B, H, KVH, D, MAXP, last, m, splits) -> tuple:
+    """(bytes of one slice's launch, bytes of m launches and their merge):
+    each slice's share of the live K/V rows (with their scales in int8),
+    q, the page table and lengths per launch, the partials (acc and m, l
+    per split) written once and read once by the merge, the output."""
+    kv = B * last * KVH * (2 * D * ATTN_ITEM[mode]
+                           + (2 * 4 if mode == "int8" else 0))
+    item = 4 if mode == "float32" else 2
+    fixed = B * H * D * item + B * MAXP * 4 + B * 4
+    partials = B * H * splits * (D + 2) * 4
+    one = kv / m + fixed + partials
+    return one, m * one + m * partials + B * H * D * item
+
+
+def slice_timing(torch, card) -> dict:
+    """Phase 4's page-token slice mode at Yi-6B's B 32 decode shape (phase
+    5's pool, 2,111 tokens, 132 pages of 16): each page's tokens cut into m
+    slices on one card, m slice launches and the merge over every slice's
+    partials.  For the bf16 and int8 routes at m = 2 and 4: held within
+    ``_attn_limit`` of the whole-page kernel and of the plain version,
+    bit-equal to the whole-page launch at m = 1, and timed (one slice's
+    launch, and the m launches with the merge) beside their bounds; the
+    float32 route held within 2e-5 of its plain version at m = 2.
+    Returns the report row (bf16 at m = 2, launches filled later)."""
+    from repro_torch.kernels import _cuda, paged_attn
+    from repro_torch.kernels.paged_attn_ref import (merge_partials_ref,
+                                                    paged_attention_ref)
+    kern, merge = paged_attn.paged_attention, paged_attn.merge_partials
+    H, KVH, D, PS = 32, 4, 128, PAGE_SIZE
+    B, MAXP = SERVE_B, -(-(PROMPT_LEN + GEN) // PS)
+    last = PROMPT_LEN + GEN - 1
+    bf16 = [_attn_case(torch, 60 + i, B, H, KVH, D, PS, MAXP, NP=B * MAXP,
+                       lens=[last] * B, dtype=torch.bfloat16, q_scale=4.0)
+            for i in range(4)]
+    routes = {"bf16": [(a, {}) for a in bf16],
+              "int8": [_quantized(a) for a in bf16]}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = _device_ms(torch, lambda d: sdpa(*d, enable_gqa=True),
+                        [_dense(a) for a in bf16], 100, KERNEL_SLEEP)
+    out, worst = {}, 0.0
+    for mode, batches in routes.items():
+        a, kw = batches[0]
+        whole = kern(*a, **kw)
+        want = paged_attention_ref(*a, **kw).float()
+        limit = _attn_limit(want)
+        _check(torch.equal(_run_slices(torch, _slices(torch, a, kw, 1),
+                                       kern, merge), whole),
+               f"{mode}: one slice of each page, merged, equals the "
+               f"whole-page launch bit for bit")
+        code = (_cuda.PAGED_ATTN_INT8 if kw else
+                _cuda.PAGED_ATTN_DTYPES)[torch.bfloat16]
+        splits = _cuda.paged_attn_splits(
+            B * KVH, MAXP, _cuda.sm_count(0),
+            _cuda.resident_blocks(0, code, D, H // KVH))
+        for m in SLICES:
+            sliced = [_slices(torch, b, k, m) for b, k in batches]
+            got = _run_slices(torch, sliced[0], kern, merge)
+            e_whole = float((got.float() - whole.float()).abs().max())
+            e_plain = float((got.float() - want).abs().max())
+            _check(max(e_whole, e_plain) <= limit, f"{mode}, {m} slices: "
+                   f"within {limit:.3g} of the whole-page kernel "
+                   f"({e_whole}) and of the plain version ({e_plain})")
+            worst = max(worst, e_plain)
+            ms = _device_ms(torch, lambda sl: _run_slices(torch, sl, kern,
+                                                          merge),
+                            sliced, 50, KERNEL_SLEEP)
+            one_ms = _device_ms(
+                torch, lambda sl: kern(*sl[0][0], page_stride=PS,
+                                       token_offset=0, **sl[0][1]),
+                sliced, 50, KERNEL_SLEEP)
+            plain_ms = _device_ms(
+                torch, lambda sl: _run_slices(
+                    torch, sl, lambda *x, **y: paged_attention_ref(
+                        *x, partials=True, **y), merge_partials_ref),
+                sliced, 10, PLAIN_SLEEP)
+            one_b, all_b = _slice_bytes(mode, B, H, KVH, D, MAXP, last, m,
+                                        splits)
+            rec = {"ms": ms, "slice_ms": one_ms, "plain_ms": plain_ms,
+                   "bound_ms": all_b / HBM_BYTES_PER_S * 1e3,
+                   "slice_bound_ms": one_b / HBM_BYTES_PER_S * 1e3,
+                   "max_abs_err": e_plain, "splits": splits}
+            out[f"{mode}_m{m}"] = rec
+            print(f"{mode} paged_attention slice mode, {m} slices of each "
+                  f"page at B={B} H={H} KVH={KVH} D={D} PS={PS} len={last}: "
+                  f"one slice's launch {one_ms * 1e3:.2f} us (bound "
+                  f"{rec['slice_bound_ms'] * 1e3:.2f} us), {m} launches and "
+                  f"the merge {ms * 1e3:.2f} us (bound "
+                  f"{rec['bound_ms'] * 1e3:.2f} us; plain version "
+                  f"{plain_ms * 1e3:.2f} us); {splits} splits per slice; "
+                  f"max_abs_err vs the whole-page kernel {e_whole:.3g}, vs "
+                  f"the plain version {e_plain:.3g}, limit {limit:.3g} "
+                  f"[{card}]", flush=True)
+            del sliced
+    f32 = _attn_case(torch, 70, B, H, KVH, D, PS, MAXP, NP=B * MAXP,
+                     lens=[last] * B, dtype=torch.float32, q_scale=4.0)
+    got = _run_slices(torch, _slices(torch, f32, {}, 2), kern, merge)
+    e32 = float((got - paged_attention_ref(*f32)).abs().max())
+    _check(e32 <= ATTN_TOL["float32"], f"float32, 2 slices: within "
+           f"{ATTN_TOL['float32']} of the plain version ({e32})")
+    print(f"float32 paged_attention slice mode, 2 slices: max_abs_err "
+          f"{e32:.3g} vs the plain version; scaled_dot_product_attention "
+          f"on the dense bf16 cache {lib_ms * 1e3:.2f} us [{card}]",
+          flush=True)
+    del bf16, routes, f32, got
+    torch.cuda.empty_cache()
+    r = out["bf16_m2"]
+    return {"name": "paged_attention_slice", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
+            "replaces": "src/repro/kernels/paged_attn.py:80",
+            "max_abs_err": max(worst, e32), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": lib_ms, "slices": out,
+            "float32_max_abs_err": e32}
+
+
 # ---------------------------------------------------------------------------
 # phase 5: serving Yi-6B at full width
 # ---------------------------------------------------------------------------
@@ -2436,16 +2600,18 @@ def _uncounted(run):
     from repro_torch.kernels import mutate, paged_attn, probe
     from repro_torch.kernels import scan_walk
     kerns = (probe.probe_segments, mutate.mutate_segments,
-             paged_attn.paged_attention, scan_walk.scan_walk)
+             paged_attn.paged_attention, scan_walk.scan_walk,
+             paged_attn.merge_partials)
     pa = paged_attn.paged_attention
     saved = [k.launches for k in kerns]
-    saved_modes = pa.int8_launches, pa.float32_launches
+    saved_modes = pa.int8_launches, pa.float32_launches, pa.slice_launches
     try:
         return run()
     finally:
         for k, n in zip(kerns, saved):
             k.launches = n
-        pa.int8_launches, pa.float32_launches = saved_modes
+        pa.int8_launches, pa.float32_launches, pa.slice_launches = \
+            saved_modes
 
 
 def _swap_attention(attention, run):
@@ -2567,10 +2733,74 @@ def float32_twin(torch, cfg, params, prompts, what) -> float:
     return err32
 
 
+def _scale_residuals(cfg, params) -> None:
+    """Residual output projections scaled by 1/sqrt(2L) in place, as GPT-2
+    and Megatron-LM initialise them: with the reference's unscaled init
+    this random 32-layer model amplifies bf16 rounding until two bf16
+    evaluations of one step differ by ~0.25 in logits of std 1.3, while
+    the float32 twins (phase 5) agree with their forward to ~1e-5: the
+    bf16 checks would measure that amplification, not the port."""
+    for name in ("wo", "w_down"):
+        params["blocks"][name].mul_((2 * cfg.n_layers) ** -0.5)
+
+
+def _serving_weights(torch, cfg):
+    """Phase 5's bf16 weights, drawn again from its seed."""
+    from repro_torch.models import transformer as T
+    params = T.init_params(cfg, torch.Generator("cuda").manual_seed(SEED))
+    _scale_residuals(cfg, params)
+    return params
+
+
+class _FirstSteps:
+    """While active, the launcher's decode steps (``launch.serve.stepper``)
+    keep the logits of their first ``n`` steps and, after the n-th, a copy
+    of the cache's page tables and sequence fields: what phase 7b (c)
+    holds its sharded steps against."""
+
+    def __init__(self, n):
+        self.n, self.logits, self.state = n, [], None
+
+    def __enter__(self):
+        from repro_torch.launch import serve
+        self._serve, self._stepper = serve, serve.stepper
+
+        def stepper(*args, **kw):
+            inner = self._stepper(*args, **kw)
+
+            def step(tokens, cache):
+                lg, cache = inner(tokens, cache)
+                if len(self.logits) < self.n:
+                    self.logits.append(lg)
+                    if len(self.logits) == self.n:
+                        self.state = _table_state(cache)
+                return lg, cache
+            return step
+        serve.stepper = stepper
+        return self
+
+    def __exit__(self, *exc):
+        self._serve.stepper = self._stepper
+
+
+def _table_state(cache) -> dict:
+    """Copies of a paged cache's page tables (every store-table field) and
+    sequence fields."""
+    out = {f: getattr(cache, f).clone() for f in
+           ("next_free", "seq_ids", "seq_lens", "cur_page", "cur_off")}
+    for s, t in enumerate(cache.table):
+        out.update({f"table{s}.{f}": x.clone() for f, x in
+                    zip(t._fields, t)})
+    return out
+
+
 def serving_phase(torch, card):
     """Phase 5; returns (cfg, params) for phases 5b and 6, the kernels'
-    launches on the serving path, and what phase 5b holds its int8 path
-    against: the bf16 cache (its pools) and the generated tokens."""
+    launches on the serving path, what phase 5b holds its int8 path
+    against (the bf16 cache, its pools, and the generated tokens) and what
+    phase 7b (c) holds the sharded serving step against (the prefill's and
+    the first ``DIST_SERVE_STEPS`` steps' logits, the page tables and
+    sequence fields after them, the tokens and the pools)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
@@ -2584,15 +2814,7 @@ def serving_phase(torch, card):
         0, cfg.vocab, (SERVE_B, PROMPT_LEN)).astype(np.int32)).cuda()
     # the port against its own forward at the init that launch.serve uses
     float32_twin(torch, cfg, params, prompts, "the launcher's init")
-    # residual output projections scaled by 1/sqrt(2L), as GPT-2 and
-    # Megatron-LM initialise them: with the reference's unscaled init this
-    # random 32-layer model amplifies bf16 rounding until two bf16
-    # evaluations of one step differ by ~0.25 in logits of std 1.3, while
-    # the float32 twins (above, and below on these weights) agree with their
-    # forward to ~1e-5: the bf16 checks would measure that amplification,
-    # not the port
-    for name in ("wo", "w_down"):
-        params["blocks"][name].mul_((2 * cfg.n_layers) ** -0.5)
+    _scale_residuals(cfg, params)
     geom = serve.make_geometry(cfg, SERVE_B, PROMPT_LEN, GEN,
                                page_size=PAGE_SIZE, shards=1, device="cuda")
     MAXP, PS = geom.max_pages, PAGE_SIZE
@@ -2624,8 +2846,10 @@ def serving_phase(torch, card):
     _check(lg.shape == (SERVE_B, cfg.vocab) and bool(lg.isfinite().all()),
            "prefill logits finite, (B, vocab)")
     _uncounted(lambda: check_table(cache, 0, PROMPT_LEN, 0, "after prefill"))
-    (toks, lg, cache), t_dec = _timed(torch, lambda: serve.run_decode(
-        cfg, geom, params, lg, cache, GEN))
+    prefill_logits = lg
+    with _FirstSteps(DIST_SERVE_STEPS) as first:
+        (toks, lg, cache), t_dec = _timed(torch, lambda: serve.run_decode(
+            cfg, geom, params, lg, cache, GEN))
     n_steps = GEN - 1
     lens = PROMPT_LEN + n_steps
     n_dec = -(-lens // PS) - npre
@@ -2756,7 +2980,11 @@ def serving_phase(torch, card):
            "the bf16 serving path launches no int8 or float32-q attention")
     _check(launches["paged_attention"] == n_steps * cfg.n_layers,
            "one attention launch per layer per decode step")
-    return cfg, params, launches, {"cache": cache, "toks": toks}
+    # what phase 7b (c) holds the sharded serving step against
+    record = {"prefill_logits": prefill_logits, "logits": first.logits,
+              "state": first.state, "toks": toks, "kpool": cache.kpool,
+              "vpool": cache.vpool}
+    return cfg, params, launches, {"cache": cache, "toks": toks}, record
 
 
 # ---------------------------------------------------------------------------
@@ -3040,21 +3268,26 @@ def _excess(torch, got, want) -> tuple:
 
 def _kernel_launches() -> dict:
     from repro_torch.kernels import mutate, paged_attn, probe, scan_walk
+    pa = paged_attn.paged_attention
     return {"probe_segments": probe.probe_segments.launches,
             "mutate_segments": mutate.mutate_segments.launches,
-            "paged_attention": paged_attn.paged_attention.launches,
-            "int8_attention": paged_attn.paged_attention.int8_launches,
-            "float32_attention": paged_attn.paged_attention.float32_launches,
+            "paged_attention": pa.launches,
+            "int8_attention": pa.int8_launches,
+            "float32_attention": pa.float32_launches,
+            "paged_attention_slice": pa.slice_launches,
+            "attention_merge": paged_attn.merge_partials.launches,
             "scan_walk": scan_walk.scan_walk.launches}
 
 
 def _reset_launches() -> None:
     from repro_torch.kernels import mutate, paged_attn, probe, scan_walk
     for k in (probe.probe_segments, mutate.mutate_segments,
-              paged_attn.paged_attention, scan_walk.scan_walk):
+              paged_attn.paged_attention, scan_walk.scan_walk,
+              paged_attn.merge_partials):
         k.launches = 0
     paged_attn.paged_attention.int8_launches = 0
     paged_attn.paged_attention.float32_launches = 0
+    paged_attn.paged_attention.slice_launches = 0
 
 
 class _StepLog:
@@ -3742,6 +3975,7 @@ DIST_CLIENT_B = 4_096           # the reference's batch per client
 DIST_CLIENT_BATCHES = 256
 DIST_MIX_B = 4_096              # the walk's mixed batch (card vs host copy)
 DIST_TRAIN_STEPS = 2
+DIST_SERVE_STEPS = 2            # 7b (c): decode steps after the prefill
 DIST_LOSS_TOL, DIST_ATOL, DIST_RTOL = 1e-3, 2e-4, 2e-3   # test_distributed
 
 
@@ -3898,7 +4132,7 @@ def _dist_store(torch, card) -> dict:
         torch.count_nonzero(rows)
     walk_ms, warm_ms = (_uncounted(lambda: _device_ms(
         torch, lambda _: SW.routed_write(lcfg, clone, *ent), [None], 8,
-        2_000_000, before)) for before in (cold, None))
+        KERNEL_SLEEP, before)) for before in (cold, None))
     del clone
     torch.cuda.empty_cache()
     print(f"phase 7b (a): sharded store (world 1, NCCL) at the service size, "
@@ -3986,10 +4220,124 @@ def _dist_train(torch, card) -> str:
             f"against {[round(t, 3) for t in times]} [{card}]")
 
 
-def multidevice_phase(torch, card) -> tuple:
-    """Phase 7b: a world-1 NCCL group in this process, the sharded store
-    and the sharded training step on the card, the group torn down at the
-    end; returns (the walk's routed-mode record, the kernels' launches)."""
+def dist_serve_record(torch) -> dict:
+    """What phase 5 records for phase 7b (c), made alone (for
+    ``tools/multidevice_phase.py``): phase 5's weights, prompts and
+    geometry through the launcher's ``run_prefill`` and ``run_decode``,
+    the prefill and ``DIST_SERVE_STEPS`` greedy decode steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.serving import kvcache as KC
+    cfg = get_arch("yi-6b")
+    params = _serving_weights(torch, cfg)
+    geom = serve.make_geometry(cfg, SERVE_B, PROMPT_LEN, GEN,
+                               page_size=PAGE_SIZE, shards=1, device="cuda")
+    lg, cache = serve.run_prefill(cfg, geom, params, _prompts(torch, cfg),
+                                  KC.create_cache(geom))
+    with _FirstSteps(DIST_SERVE_STEPS) as first:
+        toks, _, cache = serve.run_decode(cfg, geom, params, lg, cache,
+                                          DIST_SERVE_STEPS + 1)
+    return {"prefill_logits": lg, "logits": first.logits,
+            "state": first.state, "toks": toks, "kpool": cache.kpool,
+            "vpool": cache.vpool}
+
+
+def _written_rows(torch, geom, cache):
+    """(NP, PS) mask of the pool rows of a one-shard paged cache that its
+    sequences have written, from its page table: the rows below each
+    sequence's length on each of its mapped pages."""
+    from repro_torch.serving import kvcache as KC
+    PS = geom.page_size
+    pt = KC.lookup_pages(geom, cache.table, cache.seq_ids)[0]  # (B, MAXP)
+    lens = cache.seq_lens[0].long()
+    rows = torch.arange(PS, device=pt.device)
+    pages = torch.arange(pt.shape[1], device=pt.device)
+    ok = (pt >= 0)[..., None] & (
+        (pages[None, :, None] * PS + rows) < lens[:, None, None])
+    mask = torch.zeros((geom.pool_pages, PS), dtype=torch.bool,
+                       device=pt.device)
+    mask[pt.clamp(min=0).long()[..., None].expand_as(ok)[ok],
+         rows.expand_as(ok)[ok]] = True
+    return mask
+
+
+def _dist_serve(torch, card, record) -> str:
+    """7b (c): phase 5's Yi-6B serving (its bf16 weights drawn again from
+    its seed, its 32 prompts, page size 16) on a (1, 1) ``("data",
+    "model")`` mesh: the prefill and ``DIST_SERVE_STEPS`` decode steps fed
+    phase 5's greedy tokens, on this rank's shard of the cache
+    (``kvcache.shard_cache``; at world 1 every placement is ``Replicate()``
+    and the slice is the whole page), attention through the kernel's slice
+    mode and the merge.  The logits, the page tables and sequence fields,
+    and every pool row written equal phase 5's bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import kvcache as KC
+    cfg = get_arch("yi-6b")
+    params = _serving_weights(torch, cfg)
+    prompts = _prompts(torch, cfg)
+    geom = serve.make_geometry(cfg, SERVE_B, PROMPT_LEN, GEN,
+                               page_size=PAGE_SIZE, shards=1, device="cuda")
+    mesh = make_debug_mesh((1, 1), ("data", "model"), device_type="cuda")
+    with SH.use_mesh(mesh):
+        p = SH.distribute(params, T.param_logical_axes(cfg, params))
+        lgeom, cache = KC.shard_cache(geom, KC.create_cache(geom))
+        torch.cuda.empty_cache()
+        _reset_launches()
+        (lg, cache), t_pre = _timed(torch, lambda: E.prefill(
+            cfg, lgeom, p, prompts, cache))
+        logits, times = [lg], []
+        for i in range(DIST_SERVE_STEPS):
+            (lg, cache), t = _timed(torch, lambda: E.serve_step(
+                cfg, lgeom, p, record["toks"][:, i], cache))
+            logits.append(lg)
+            times.append(t)
+        launches = _kernel_launches()
+    _check(torch.equal(logits[0], record["prefill_logits"]),
+           "7b (c): the sharded prefill's logits equal phase 5's bit for bit")
+    for i, (a, b) in enumerate(zip(logits[1:], record["logits"])):
+        _check(torch.equal(a, b), f"7b (c): decode step {i}'s logits equal "
+               f"phase 5's bit for bit")
+    state = _table_state(cache)
+    for k, v in record["state"].items():
+        _check(torch.equal(state[k], v), f"7b (c): {k} equals phase 5's")
+    mask = _written_rows(torch, lgeom, cache)
+    rows = int(mask.sum())
+    for name in ("kpool", "vpool"):
+        mine, ref = getattr(cache, name), record[name]
+        for layer in range(cfg.n_layers):
+            a = mine[layer, 0].permute(0, 2, 1, 3)[mask]
+            b = ref[layer, 0].permute(0, 2, 1, 3)[mask]
+            _check(torch.equal(a, b), f"7b (c): {name} layer {layer}'s "
+                   f"written rows equal phase 5's bit for bit")
+    n = DIST_SERVE_STEPS * cfg.n_layers
+    _check(launches["paged_attention_slice"] == launches["paged_attention"]
+           == launches["attention_merge"] == n, f"7b (c): one slice-mode "
+           f"attention launch and one merge per layer per step ({launches})")
+    _check(launches["probe_segments"] > 0, "7b (c): the sharded serving "
+           "path's page-table lookups launched the probe kernel")
+    del cache, p, params, logits
+    torch.cuda.empty_cache()
+    return (launches, f"phase 7b (c): {cfg.name} serving on a (1, 1) "
+            f"('data', 'model') mesh: prefill {SERVE_B} x {PROMPT_LEN} "
+            f"tokens in {t_pre:.3f} s, {DIST_SERVE_STEPS} decode steps "
+            f"{[round(t * 1e3, 2) for t in times]} ms (slice "
+            f"{lgeom.page_slice} of {lgeom.page_slices} per page); logits, "
+            f"page tables, sequence fields and the {rows} written pool rows "
+            f"per layer equal phase 5's bit for bit; launches {launches} "
+            f"[{card}]")
+
+
+def multidevice_phase(torch, card, record) -> tuple:
+    """Phase 7b: a world-1 NCCL group in this process, the sharded store,
+    the sharded training step and the sharded serving step (held against
+    phase 5's ``record``) on the card, the group torn down at the end;
+    returns (the walk's routed-mode record, the kernels' launches on (a)
+    and (c), summed)."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     torch.cuda.set_device(0)
@@ -4003,15 +4351,18 @@ def multidevice_phase(torch, card) -> tuple:
         _reset_launches()
         line = _dist_train(torch, card)
         train_launches = _kernel_launches()
+        t2 = time.perf_counter()
+        serve_launches, serve_line = _dist_serve(torch, card, record)
     finally:
         dist.destroy_process_group()
-    print(f"{line}; (a) {t1 - t0:.1f} s, (b) {time.perf_counter() - t1:.1f} "
-          f"s; launches (a) {launches}, (b) {train_launches}", flush=True)
+    print(f"{line}; (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s; launches (a) "
+          f"{launches}, (b) {train_launches}", flush=True)
+    print(f"{serve_line}; (c) {time.perf_counter() - t2:.1f} s", flush=True)
     _check(launches["scan_walk"] > 0, "the sharded store's writes launched "
            "the serial walk")
     _check(not any(train_launches.values()), "the sharded training path "
            "launches no kernel")
-    return routed, launches
+    return routed, {k: launches[k] + serve_launches[k] for k in launches}
 
 
 def main() -> int:
@@ -4141,11 +4492,12 @@ def _smoke(torch, twins) -> int:
     # -- phase 4: paged attention against its plain version --------------
     attn_row, f32_row = attention_phase(torch, card)
     rows.append(attn_row)
+    slice_row = slice_timing(torch, card)
     torch.cuda.empty_cache()
 
     # -- phase 5: serving Yi-6B, its launches counted ---------------------
     t0 = time.perf_counter()
-    cfg, params, launches, served = serving_phase(torch, card)
+    cfg, params, launches, served, record = serving_phase(torch, card)
     torch.cuda.empty_cache()
     print(f"serving path: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -4171,7 +4523,8 @@ def _smoke(torch, twins) -> int:
 
     # -- phase 7b: the multi-device layer at world 1, launches counted ---
     t0 = time.perf_counter()
-    routed, dist_launches = multidevice_phase(torch, card)
+    routed, dist_launches = multidevice_phase(torch, card, record)
+    del record
     print(f"multi-device path: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- phase 8: report -------------------------------------------------
@@ -4209,6 +4562,15 @@ def _smoke(torch, twins) -> int:
                      moe_launches=moe_launches["float32_attention"],
                      train_launches=train_launches["float32_attention"],
                      dist_launches=dist_launches["float32_attention"]))
+    # the page-token slice mode: its launches on the multi-device serving
+    # path, phase 7b (c), the only path that runs it
+    rows.append(dict(slice_row, launches=dist_launches["paged_attention_slice"],
+                     merge_launches=dist_launches["attention_merge"],
+                     moe_launches=moe_launches["paged_attention_slice"],
+                     train_launches=train_launches["paged_attention_slice"],
+                     dist_launches=dist_launches["paged_attention_slice"]))
+    _check(dist_launches["paged_attention_slice"] > 0, "the multi-device "
+           "serving path launched the slice mode")
     _check(all(n > 0 for n in F32_TWIN_LAUNCHES.values())
            and len(F32_TWIN_LAUNCHES) == 3, f"every float32 twin launched "
            f"the float32-q loop ({F32_TWIN_LAUNCHES})")

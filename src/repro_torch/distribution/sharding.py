@@ -132,6 +132,30 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
+def chunk_of(entry, mesh) -> Tuple[int, int]:
+    """(index, count) of this rank's chunk of a dim placed as one
+    ``logical_spec`` entry (None, an axis name, or axis names, major first)
+    on ``mesh``: the chunks in DTensor's order of ``placements``."""
+    axes = () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+    sizes, names = axis_sizes(mesh), list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    idx, count = 0, 1
+    for a in axes:
+        idx = idx * sizes[a] + coord[names.index(a)]
+        count *= sizes[a]
+    return idx, count
+
+
+def mesh_context():
+    """Under a mesh, DTensor's ``implicit_replication`` (plain tensors made
+    inside a step act as replicated); a null context without one."""
+    if get_mesh() is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)

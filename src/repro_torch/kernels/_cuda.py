@@ -301,15 +301,11 @@ def resident_blocks(index: int, dtype: int, D: int, G: int = 8) -> int:
     return blocks.value
 
 
-def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float,
-                      splits: int = 0, kscale=None, vscale=None):
-    """Check the operands and launch the paged-attention kernels (the split
-    kernel and the merge) on the current stream; returns the (B, H, D)
-    output in q's dtype.  Pools are of q's dtype, or int8 with their
-    float32 scales ``kscale``/``vscale`` (NP, KVH, PS, 1) (the int8 mode).
-    ``splits`` 0 lets the host choose (``paged_attn_splits``); tests pass
-    others.  Reads nothing back from the device.  Raises on any operand it
-    does not take or a failed launch."""
+def _attn_operands(q, kpool, vpool, page_table, seq_lens, splits, kscale,
+                   vscale) -> tuple:
+    """Check the paged-attention operands; returns (B, H, KVH, D, NP, PS,
+    MAXP, dtype code, splits: the host's choice when 0).  Raises on any
+    operand the kernels do not take."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -357,27 +353,131 @@ def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float,
     if NP * KVH * PS >= 2 ** 31:
         raise ValueError(f"pools of {NP * KVH * PS} rows: the kernel indexes "
                          f"rows with 32-bit integers")
-    out = torch.empty_like(q)
-    if B == 0:
-        return out
     code = (PAGED_ATTN_INT8 if quant else PAGED_ATTN_DTYPES)[q.dtype]
-    if not splits:
+    if not splits and B:
         splits = paged_attn_splits(B * KVH, MAXP, sm_count(dev.index),
                                    resident_blocks(dev.index, code, D,
                                                    H // KVH))
+    return B, H, KVH, D, NP, PS, MAXP, code, splits
+
+
+def _pointers(q, kpool, vpool, kscale, vscale, page_table, seq_lens):
+    quant = kscale is not None
+    return (q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
+            kscale.data_ptr() if quant else None,
+            vscale.data_ptr() if quant else None, page_table.data_ptr(),
+            seq_lens.data_ptr())
+
+
+def launch_paged_attn(q, kpool, vpool, page_table, seq_lens, scale: float,
+                      splits: int = 0, kscale=None, vscale=None):
+    """Check the operands and launch the paged-attention kernels (the split
+    kernel and the merge) on the current stream; returns the (B, H, D)
+    output in q's dtype.  Pools are of q's dtype, or int8 with their
+    float32 scales ``kscale``/``vscale`` (NP, KVH, PS, 1) (the int8 mode).
+    ``splits`` 0 lets the host choose (``paged_attn_splits``); tests pass
+    others.  Reads nothing back from the device.  Raises on any operand it
+    does not take or a failed launch."""
+    B, H, KVH, D, NP, PS, MAXP, code, splits = _attn_operands(
+        q, kpool, vpool, page_table, seq_lens, splits, kscale, vscale)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    dev = q.device
     workspace = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
                             device=dev)
     lib = paged_attn_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paged_attn_launch(
-            code, q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(),
-            kscale.data_ptr() if quant else None,
-            vscale.data_ptr() if quant else None, page_table.data_ptr(),
-            seq_lens.data_ptr(), out.data_ptr(), workspace.data_ptr(), B, H,
-            KVH, D, NP, PS, MAXP, splits, float(scale), stream)
+            code, *_pointers(q, kpool, vpool, kscale, vscale, page_table,
+                             seq_lens),
+            out.data_ptr(), workspace.data_ptr(), B, H, KVH, D, NP, PS, MAXP,
+            splits, float(scale), stream)
     if err:
         raise RuntimeError(f"paged_attn_launch failed: cudaError {err}")
+    return out
+
+
+def _declare(lib, symbol: str, argtypes):
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_paged_attn_slice(q, kpool, vpool, page_table, seq_lens,
+                            scale: float, page_stride: int, token_offset: int,
+                            splits: int = 0, kscale=None, vscale=None):
+    """The page-token slice mode: the split kernel alone over pools that
+    hold ``PS`` (their third dim) of each page's ``page_stride`` tokens,
+    from token ``token_offset`` on; returns the splits' partials (acc (B,
+    H, splits, D), ml (B, H, splits, 2): (m, l)) float32, for
+    ``launch_paged_attn_merge``.  The split count is the host's choice
+    from the local shape when ``splits`` is 0.  Reads nothing back from
+    the device; raises on any operand it does not take or a failed
+    launch."""
+    B, H, KVH, D, NP, PS, MAXP, code, splits = _attn_operands(
+        q, kpool, vpool, page_table, seq_lens, splits, kscale, vscale)
+    if not (PS <= page_stride and 0 <= token_offset <= page_stride - PS):
+        raise ValueError(f"a slice of {PS} rows from token {token_offset} "
+                         f"does not fit pages of {page_stride} tokens")
+    splits = max(splits, 1)
+    dev = q.device
+    workspace = torch.empty(B * H * splits * (D + 2), dtype=torch.float32,
+                            device=dev)
+    n = B * H * splits * D
+    acc = workspace[:n].view(B, H, splits, D)
+    ml = workspace[n:].view(B, H, splits, 2)
+    if B == 0:
+        return acc, ml
+    fn = _declare(paged_attn_lib(), "paged_attn_slice_launch",
+                  [ctypes.c_int] + [ctypes.c_void_p] * 8
+                  + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(code, *_pointers(q, kpool, vpool, kscale, vscale,
+                                  page_table, seq_lens),
+                 workspace.data_ptr(), B, H, KVH, D, NP, PS, MAXP,
+                 int(page_stride), int(token_offset), splits, float(scale),
+                 stream)
+    if err:
+        raise RuntimeError(f"paged_attn_slice_launch failed: cudaError {err}")
+    return acc, ml
+
+
+def launch_paged_attn_merge(acc, ml, dtype):
+    """The merge kernel alone over partials acc (..., P, D) and ml (..., P,
+    2) float32 (P at most ``MAX_SPLITS``), summed in P order; returns (...,
+    D) in ``dtype`` (float32 or bfloat16).  Raises on any operand it does
+    not take or a failed launch."""
+    dev = acc.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if dtype not in PAGED_ATTN_DTYPES:
+        raise ValueError(f"the merge writes float32 or bfloat16, got {dtype}")
+    P, D = acc.shape[-2:]
+    _need_dtype(acc, "acc", torch.float32, dev)
+    _need_dtype(ml, "ml", torch.float32, dev)
+    if tuple(ml.shape) != tuple(acc.shape[:-1]) + (2,):
+        raise ValueError(f"ml {tuple(ml.shape)} does not fit acc "
+                         f"{tuple(acc.shape)}")
+    if not 1 <= P <= MAX_SPLITS:
+        raise ValueError(f"{P} partials per row: the merge takes 1 to "
+                         f"{MAX_SPLITS}")
+    out = torch.empty(tuple(acc.shape[:-2]) + (D,), dtype=dtype, device=dev)
+    rows = out.numel() // max(D, 1)
+    if rows == 0:
+        return out
+    fn = _declare(paged_attn_lib(), "paged_attn_merge_launch",
+                  [ctypes.c_int] + [ctypes.c_void_p] * 3
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(int(dtype == torch.bfloat16), acc.data_ptr(), ml.data_ptr(),
+                 out.data_ptr(), rows, D, P, stream)
+    if err:
+        raise RuntimeError(f"paged_attn_merge_launch failed: cudaError {err}")
     return out
 
 

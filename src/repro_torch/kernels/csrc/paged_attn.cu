@@ -90,6 +90,14 @@
 //   loop), rows padded so a quarter-warp's 8 tokens fall on distinct
 //   banks; int8 rows are dequantized as they leave the ring.  Bound:
 //   bytes, 8 * D per live token per kv head in float32.
+// - Page-token slices (split-KV decode over a mesh whose model axis splits
+//   each page's tokens, every route): the pools hold PS of each page's PSg
+//   tokens, from token `off` on.  The slice's live rows are a prefix of its
+//   local token order (slice_len), so the split kernels run unchanged on
+//   that prefix; the call returns the splits' partials instead of merging
+//   them, and the merge kernel later sums the partials of every slice, in
+//   slice order, as it sums splits.  With one slice (PSg = PS, off = 0)
+//   the partials and their merge are the whole-page launch's, bit for bit.
 
 #include <cmath>
 #include <cstdint>
@@ -124,6 +132,23 @@ __device__ __forceinline__ void split_tokens(int split, int pages_per_split,
   const long long e = b + static_cast<long long>(pages_per_split) * PS;
   *tb = static_cast<int>(b < len ? b : len);
   *te = static_cast<int>(e < len ? e : len);
+}
+
+// the live rows of a sequence of `len` tokens in this call's slice of each
+// page, clipped to MAXP * PS: local row j of logical page p is token
+// p * PSg + off + j (PSg the pages' global stride, PS the rows per page of
+// the pools this call reads).  They are a prefix of the local token order:
+// every row of a page wholly below len, then the rows of the last page
+// below it.  With PSg = PS and off = 0 (whole pages) it is min(len, MAXP*PS)
+__device__ __forceinline__ int slice_len(int len, int PSg, int off, int PS,
+                                         int MAXP) {
+  if (len <= 0) return 0;
+  const int full = len / PSg;
+  const int rem = min(max(len - full * PSg - off, 0), PS);
+  const long long l = static_cast<long long>(full) * PS + rem;
+  return static_cast<int>(l < static_cast<long long>(MAXP) * PS
+                              ? l
+                              : static_cast<long long>(MAXP) * PS);
 }
 
 // ---------------------------------------------------------------------------
@@ -401,8 +426,8 @@ split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
                   const int32_t* __restrict__ page_table,
                   const int32_t* __restrict__ seq_lens,
                   float* __restrict__ ws_acc, float2* __restrict__ ws_ml,
-                  int H, int KVH, int D, int NP, int PS, int MAXP,
-                  int pages_per_split, int splits, float scale) {
+                  int H, int KVH, int D, int NP, int PS, int MAXP, int PSg,
+                  int tok_off, int pages_per_split, int splits, float scale) {
   using Pool = typename std::conditional<kQuant, int8_t, bf16>::type;
   constexpr int kS = ring_stages(kQuant);  // ring stages
   const Pool* kpool = static_cast<const Pool*>(kpool_);
@@ -462,7 +487,7 @@ split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
 #pragma unroll
   for (int st = 0; st < kS - 1; ++st) pt_first[st] = page_of(st);
 
-  const int len = len_raw < 0 ? 0 : min(len_raw, MAXP * PS);
+  const int len = slice_len(len_raw, PSg, tok_off, PS, MAXP);
   int tb, te;
   split_tokens(split, pages_per_split, PS, len, &tb, &te);
   if (te <= tb) {  // nothing live in this split
@@ -763,8 +788,8 @@ split_kernel_cc(const float* __restrict__ q, const void* __restrict__ kpool,
                 const int32_t* __restrict__ page_table,
                 const int32_t* __restrict__ seq_lens,
                 float* __restrict__ ws_acc, float2* __restrict__ ws_ml,
-                int H, int KVH, int D, int NP, int PS, int MAXP,
-                int pages_per_split, int splits, float scale) {
+                int H, int KVH, int D, int NP, int PS, int MAXP, int PSg,
+                int tok_off, int pages_per_split, int splits, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rb = cc_row_bytes(D, kQuant);
   const int pbytes = kQuant ? D : 4 * D;  // bytes of a pool row
@@ -807,7 +832,7 @@ split_kernel_cc(const float* __restrict__ q, const void* __restrict__ kpool,
   };
   const int pt_first = page_of(0);
 
-  const int len = len_raw < 0 ? 0 : min(len_raw, MAXP * PS);
+  const int len = slice_len(len_raw, PSg, tok_off, PS, MAXP);
   int tb, te;
   split_tokens(split, pages_per_split, PS, len, &tb, &te);
   if (te <= tb) {  // nothing live in this split
@@ -1096,10 +1121,12 @@ cudaError_t allow_smem(Kernel kernel, int bytes, int (&allowed)[64]) {
   return err;
 }
 
-// the merge, launched to overlap the split kernel's tail (see griddep_wait)
+// the merge; `pdl`: launched to overlap the split kernel's tail (see
+// griddep_wait), else after whatever the stream ran before it
 template <typename T>
 cudaError_t launch_merge(const float* ws_acc, const float2* ws_ml, void* out,
-                         int BH, int D, int splits, cudaStream_t stream) {
+                         int BH, int D, int splits, bool pdl,
+                         cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(BH);
   cfg.blockDim = dim3(kMergeThreads);
@@ -1108,7 +1135,7 @@ cudaError_t launch_merge(const float* ws_acc, const float2* ws_ml, void* out,
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = pdl ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, merge_kernel<T>, ws_acc, ws_ml,
                             static_cast<T*>(out), D, splits);
 }
@@ -1144,8 +1171,8 @@ cudaError_t launch_bf16(const void* q, const void* kpool, const void* vpool,
                         const float* kscale, const float* vscale,
                         const int32_t* pt, const int32_t* lens, float* ws_acc,
                         float2* ws_ml, int B, int H, int KVH, int D, int NP,
-                        int PS, int MAXP, int pps, int splits, float scale,
-                        cudaStream_t stream) {
+                        int PS, int MAXP, int PSg, int off, int pps,
+                        int splits, float scale, cudaStream_t stream) {
   const int bytes = bf16_smem_bytes(D, kQuant);
   const cudaError_t err = ready_bf16<kNt, kQuant>(D);
   if (err != cudaSuccess) return err;
@@ -1153,7 +1180,7 @@ cudaError_t launch_bf16(const void* q, const void* kpool, const void* vpool,
   const dim3 grid(B * KVH, splits, (G + kRows - 1) / kRows);
   split_kernel_bf16<kNt, kQuant><<<grid, kWarps * 32, bytes, stream>>>(
       static_cast<const bf16*>(q), kpool, vpool, kscale, vscale, pt, lens,
-      ws_acc, ws_ml, H, KVH, D, NP, PS, MAXP, pps, splits, scale);
+      ws_acc, ws_ml, H, KVH, D, NP, PS, MAXP, PSg, off, pps, splits, scale);
   return cudaGetLastError();
 }
 
@@ -1162,20 +1189,18 @@ cudaError_t launch_bf16_d(const void* q, const void* kpool, const void* vpool,
                           const float* kscale, const float* vscale,
                           const int32_t* pt, const int32_t* lens,
                           float* ws_acc, float2* ws_ml, int B, int H, int KVH,
-                          int D, int NP, int PS, int MAXP, int pps, int splits,
-                          float scale, cudaStream_t stream) {
+                          int D, int NP, int PS, int MAXP, int PSg, int off,
+                          int pps, int splits, float scale,
+                          cudaStream_t stream) {
   const int Dp = padded_d(D);
-  return Dp <= 64 ? launch_bf16<8, kQuant>(
-                        q, kpool, vpool, kscale, vscale, pt, lens, ws_acc,
-                        ws_ml, B, H, KVH, D, NP, PS, MAXP, pps, splits, scale,
-                        stream)
-         : Dp <= 128
-             ? launch_bf16<16, kQuant>(q, kpool, vpool, kscale, vscale, pt,
-                                       lens, ws_acc, ws_ml, B, H, KVH, D, NP,
-                                       PS, MAXP, pps, splits, scale, stream)
-             : launch_bf16<32, kQuant>(q, kpool, vpool, kscale, vscale, pt,
-                                       lens, ws_acc, ws_ml, B, H, KVH, D, NP,
-                                       PS, MAXP, pps, splits, scale, stream);
+  auto go = [&](auto kernel_launch) {
+    return kernel_launch(q, kpool, vpool, kscale, vscale, pt, lens, ws_acc,
+                         ws_ml, B, H, KVH, D, NP, PS, MAXP, PSg, off, pps,
+                         splits, scale, stream);
+  };
+  return Dp <= 64    ? go(launch_bf16<8, kQuant>)
+         : Dp <= 128 ? go(launch_bf16<16, kQuant>)
+                     : go(launch_bf16<32, kQuant>);
 }
 
 // the float32-q split kernel of kG heads per block, allowed the shared
@@ -1201,8 +1226,8 @@ cudaError_t launch_cc(const void* q, const void* kpool, const void* vpool,
                       const float* kscale, const float* vscale,
                       const int32_t* pt, const int32_t* lens, float* ws_acc,
                       float2* ws_ml, int B, int H, int KVH, int D, int NP,
-                      int PS, int MAXP, int pps, int splits, float scale,
-                      cudaStream_t stream) {
+                      int PS, int MAXP, int PSg, int off, int pps, int splits,
+                      float scale, cudaStream_t stream) {
   const int bytes = cc_smem_bytes(D, kG, kQuant);
   const cudaError_t err = ready_cc<kG, kQuant>(D);
   if (err != cudaSuccess) return err;
@@ -1210,7 +1235,7 @@ cudaError_t launch_cc(const void* q, const void* kpool, const void* vpool,
   const dim3 grid(B * KVH, splits, (G + kG - 1) / kG);
   split_kernel_cc<kG, kQuant><<<grid, kWarps * 32, bytes, stream>>>(
       static_cast<const float*>(q), kpool, vpool, kscale, vscale, pt, lens,
-      ws_acc, ws_ml, H, KVH, D, NP, PS, MAXP, pps, splits, scale);
+      ws_acc, ws_ml, H, KVH, D, NP, PS, MAXP, PSg, off, pps, splits, scale);
   return cudaGetLastError();
 }
 
@@ -1233,12 +1258,12 @@ cudaError_t launch_cc_g(const void* q, const void* kpool, const void* vpool,
                         const float* kscale, const float* vscale,
                         const int32_t* pt, const int32_t* lens, float* ws_acc,
                         float2* ws_ml, int B, int H, int KVH, int D, int NP,
-                        int PS, int MAXP, int pps, int splits, float scale,
-                        cudaStream_t stream) {
+                        int PS, int MAXP, int PSg, int off, int pps,
+                        int splits, float scale, cudaStream_t stream) {
   auto go = [&](auto kernel_launch) {
     return kernel_launch(q, kpool, vpool, kscale, vscale, pt, lens, ws_acc,
-                         ws_ml, B, H, KVH, D, NP, PS, MAXP, pps, splits,
-                         scale, stream);
+                         ws_ml, B, H, KVH, D, NP, PS, MAXP, PSg, off, pps,
+                         splits, scale, stream);
   };
   switch (cc_heads(H / KVH)) {
     case 1: return go(launch_cc<1, kQuant>);
@@ -1246,6 +1271,46 @@ cudaError_t launch_cc_g(const void* q, const void* kpool, const void* vpool,
     case 4: return go(launch_cc<4, kQuant>);
     default: return go(launch_cc<8, kQuant>);
   }
+}
+
+// the split kernel of `dtype` (see paged_attn_launch) over the pools'
+// slice (PSg, off) of each page, its partials into the workspace
+cudaError_t launch_splits(int dtype, const void* q, const void* kpool,
+                          const void* vpool, const void* kscale,
+                          const void* vscale, const void* page_table,
+                          const void* seq_lens, float* ws_acc, float2* ws_ml,
+                          int B, int H, int KVH, int D, int NP, int PS,
+                          int MAXP, int PSg, int off, int splits, float scale,
+                          cudaStream_t s) {
+  const int pps = (MAXP + splits - 1) / splits;  // pages per split
+  const int32_t* pt = static_cast<const int32_t*>(page_table);
+  const int32_t* lens = static_cast<const int32_t*>(seq_lens);
+  const float* kss = static_cast<const float*>(kscale);
+  const float* vss = static_cast<const float*>(vscale);
+  switch (dtype) {
+    case 0:
+    case 2:
+      return (dtype == 2 ? launch_cc_g<true> : launch_cc_g<false>)(
+          q, kpool, vpool, kss, vss, pt, lens, ws_acc, ws_ml, B, H, KVH, D,
+          NP, PS, MAXP, PSg, off, pps, splits, scale, s);
+    case 1:
+    case 3:
+      return (dtype == 3 ? launch_bf16_d<true> : launch_bf16_d<false>)(
+          q, kpool, vpool, kss, vss, pt, lens, ws_acc, ws_ml, B, H, KVH, D,
+          NP, PS, MAXP, PSg, off, pps, splits, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+bool bad_operands(int dtype, int B, int H, int KVH, int D, int NP, int PS,
+                  int MAXP, int splits, const void* kscale,
+                  const void* vscale) {
+  return B <= 0 || KVH <= 0 || H % KVH || D <= 0 || D > kMaxD || D % 8 ||
+         PS <= 0 || MAXP <= 0 || NP <= 0 || splits <= 0 ||
+         splits > kMaxSplits || dtype < 0 || dtype > 3 ||
+         static_cast<long long>(NP) * KVH * PS > 0x7fffffffLL ||  // int rows
+         (dtype >= 2) != (kscale != nullptr && vscale != nullptr);
 }
 
 }  // namespace
@@ -1287,42 +1352,76 @@ extern "C" int paged_attn_launch(int dtype, const void* q, const void* kpool,
                                  int NP, int PS, int MAXP, int splits,
                                  float scale, void* stream) {
   if (B <= 0) return 0;
-  if (KVH <= 0 || H % KVH || D <= 0 || D > kMaxD || D % 8 || PS <= 0 ||
-      MAXP <= 0 || NP <= 0 || splits <= 0 || splits > kMaxSplits ||
-      static_cast<long long>(NP) * KVH * PS > 0x7fffffffLL ||  // int rows
-      (dtype >= 2) != (kscale != nullptr && vscale != nullptr))
+  if (bad_operands(dtype, B, H, KVH, D, NP, PS, MAXP, splits, kscale, vscale))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int pps = (MAXP + splits - 1) / splits;  // pages per split
   const int BH = B * H;
   float* ws_acc = static_cast<float*>(workspace);
   float2* ws_ml = reinterpret_cast<float2*>(
       ws_acc + static_cast<size_t>(BH) * splits * D);
-  const int32_t* pt = static_cast<const int32_t*>(page_table);
-  const int32_t* lens = static_cast<const int32_t*>(seq_lens);
-  const float* kss = static_cast<const float*>(kscale);
-  const float* vss = static_cast<const float*>(vscale);
-  cudaError_t err;
-  switch (dtype) {
-    case 0:
-    case 2:
-      err = (dtype == 2 ? launch_cc_g<true> : launch_cc_g<false>)(
-          q, kpool, vpool, kss, vss, pt, lens, ws_acc, ws_ml, B, H, KVH, D,
-          NP, PS, MAXP, pps, splits, scale, s);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      err = launch_merge<float>(ws_acc, ws_ml, out, BH, D, splits, s);
-      break;
-    case 1:
-    case 3:
-      err = (dtype == 3 ? launch_bf16_d<true> : launch_bf16_d<false>)(
-          q, kpool, vpool, kss, vss, pt, lens, ws_acc, ws_ml, B, H, KVH, D,
-          NP, PS, MAXP, pps, splits, scale, s);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      err = launch_merge<bf16>(ws_acc, ws_ml, out, BH, D, splits, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  cudaError_t err =
+      launch_splits(dtype, q, kpool, vpool, kscale, vscale, page_table,
+                    seq_lens, ws_acc, ws_ml, B, H, KVH, D, NP, PS, MAXP, PS, 0,
+                    splits, scale, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = dtype == 0 || dtype == 2
+            ? launch_merge<float>(ws_acc, ws_ml, out, BH, D, splits, true, s)
+            : launch_merge<bf16>(ws_acc, ws_ml, out, BH, D, splits, true, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The page-token slice mode: the split kernel alone over pools that hold a
+// slice of each page, PS of its PSg tokens from token `off` on (local row
+// j of logical page p is token p * PSg + off + j, live iff that token is
+// below the sequence's length and the page is mapped).  Writes the splits'
+// partials to the workspace as paged_attn_launch lays them out, acc (B, H,
+// splits, D) then (m, l) (B, H, splits), and no output: the partials of
+// several slices merge with paged_attn_merge_launch.  With PSg = PS and
+// off = 0 the partials are those paged_attn_launch merges.
+extern "C" int paged_attn_slice_launch(int dtype, const void* q,
+                                       const void* kpool, const void* vpool,
+                                       const void* kscale, const void* vscale,
+                                       const void* page_table,
+                                       const void* seq_lens, void* workspace,
+                                       int B, int H, int KVH, int D, int NP,
+                                       int PS, int MAXP, int PSg, int off,
+                                       int splits, float scale, void* stream) {
+  if (B <= 0) return 0;
+  if (bad_operands(dtype, B, H, KVH, D, NP, PS, MAXP, splits, kscale,
+                   vscale) ||
+      PSg < PS || off < 0 || off > PSg - PS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int BH = B * H;
+  float* ws_acc = static_cast<float*>(workspace);
+  float2* ws_ml = reinterpret_cast<float2*>(
+      ws_acc + static_cast<size_t>(BH) * splits * D);
+  const cudaError_t err = launch_splits(
+      dtype, q, kpool, vpool, kscale, vscale, page_table, seq_lens, ws_acc,
+      ws_ml, B, H, KVH, D, NP, PS, MAXP, PSg, off, splits, scale,
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The merge alone over `parts` partials per (sequence, head) row: acc
+// (rows, parts, D) float32 and (m, l) (rows, parts) float2 pairs, in the
+// order they are to be summed (the ranks' slices in rank order, each
+// rank's splits in split order); out (rows, D) float32 (out_bf16 0) or
+// bfloat16 (1).  An empty partial (m = -inf) weighs 0; a row of empty
+// partials gives zeros.  Returns the cudaError_t of the launch.
+extern "C" int paged_attn_merge_launch(int out_bf16, const void* acc,
+                                       const void* ml, void* out, int rows,
+                                       int D, int parts, void* stream) {
+  if (rows <= 0) return 0;
+  if (D <= 0 || parts <= 0 || parts > kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a = static_cast<const float*>(acc);
+  const float2* m = static_cast<const float2*>(ml);
+  const cudaError_t err =
+      out_bf16 ? launch_merge<bf16>(a, m, out, rows, D, parts, false, s)
+               : launch_merge<float>(a, m, out, rows, D, parts, false, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,7 @@ stage; ``probe_lookup`` extends it to a FULL lookup (values + extension
 slots + stash tail + fetch accounting) and is the continuity store's
 kernel read path; ``mutation_plan`` is the write-side peer;
 ``paged_attention`` is the serving decode step's attention over the page
-pool.  With ``use_kernel`` the wrappers of ``probe.py``/``mutate.py``/
+pool (``merge_partials`` merges its page-token slices' partials).  With ``use_kernel`` the wrappers of ``probe.py``/``mutate.py``/
 ``paged_attn.py`` run (the CUDA kernel on a card, its plain version on the
 CPU); without it the plain versions run directly.
 """
@@ -25,6 +25,7 @@ from repro_torch.core.continuity import (KEY_LANES, ContinuityConfig,
 from repro_torch.core.words import as_words, u32
 from repro_torch.kernels.mutate import mutate_segments
 from repro_torch.kernels.mutate_ref import mutate_ref
+from repro_torch.kernels.paged_attn import merge_partials  # noqa: F401
 from repro_torch.kernels.paged_attn import paged_attention as _paged_attn
 from repro_torch.kernels.paged_attn_ref import paged_attention_ref
 from repro_torch.kernels.probe import probe_segments
@@ -148,13 +149,21 @@ def probe_lookup(cfg: ContinuityConfig, table: ContinuityTable, keys,
 
 def paged_attention(q, kpool, vpool, page_table, seq_lens, *,
                     scale: float | None = None, kscale=None, vscale=None,
+                    page_stride=None, token_offset=0,
                     use_kernel: bool = True):
     """Paged GQA decode attention: q (B, H, D) over pools (NP, KVH, PS, D)
     through page_table (B, MAXP) with live lengths seq_lens (B,); int8
     pools come with their float32 scales ``kscale``/``vscale`` (NP, KVH,
-    PS, 1).  The reference pads the query-head group to 8 for the TPU's
-    tiles; the CUDA kernel takes any group size, so nothing is padded
-    here."""
+    PS, 1).  With ``page_stride`` the pools hold a slice of each page's
+    tokens from ``token_offset`` on and the call returns the slice's
+    partials (``merge_partials`` merges every slice's).  The reference
+    pads the query-head group to 8 for the TPU's tiles; the CUDA kernel
+    takes any group size, so nothing is padded here."""
     fn = _paged_attn if use_kernel else paged_attention_ref
+    kw = {}
+    if page_stride is not None:
+        kw = dict(page_stride=page_stride, token_offset=token_offset)
+        if not use_kernel:
+            kw["partials"] = True
     return fn(q, kpool, vpool, page_table, seq_lens, scale=scale,
-              kscale=kscale, vscale=vscale)
+              kscale=kscale, vscale=vscale, **kw)

@@ -20,9 +20,17 @@ bf16 kernel's ring and tensor cores (its output equals the bf16 mode's
 on the dequantized pools bit for bit), under float32 q in the CUDA-core
 loop; its bound is 2 * D + 8 bytes per live token per kv head.
 
-On a CPU tensor the wrapper runs the plain version
-(``paged_attn_ref.paged_attention_ref``); on a CUDA tensor it launches
-the kernel or raises.
+The page-token slice mode (``page_stride``, ``token_offset``: split-KV
+decode over a mesh whose model axis splits each page's tokens) reads
+pools holding a slice of each page and returns the splits' partials;
+``merge_partials`` merges the partials of every slice (the merge kernel
+alone).  With one slice the merged partials equal the whole-page output
+bit for bit.
+
+On a CPU tensor the wrappers run the plain versions
+(``paged_attn_ref.paged_attention_ref``, ``merge_partials_ref``); on a
+CUDA tensor they launch the kernel or raise; on a meta tensor (the
+planning tools' dry run) they give the shapes alone.
 """
 
 from __future__ import annotations
@@ -30,11 +38,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _cuda
-from repro_torch.kernels.paged_attn_ref import paged_attention_ref
+from repro_torch.kernels.paged_attn_ref import (merge_partials_ref,
+                                               paged_attention_ref)
 
 
 def paged_attention(q, kpool, vpool, page_table, seq_lens, scale=None,
-                    kscale=None, vscale=None):
+                    kscale=None, vscale=None, page_stride=None,
+                    token_offset=0):
     """Paged GQA decode attention.
 
     Args:
@@ -44,17 +54,37 @@ def paged_attention(q, kpool, vpool, page_table, seq_lens, scale=None,
       page_table: (B, MAXP) int32 physical page ids (-1 = absent)
       seq_lens:   (B,) int32 live lengths
       kscale, vscale: (NP, KVH, PS, 1) float32 scales of int8 pools
-    Returns: (B, H, D) in q's dtype.
+      page_stride, token_offset: the slice mode: the pools hold PS of each
+                  page's ``page_stride`` tokens from ``token_offset`` on
+    Returns: (B, H, D) in q's dtype; in the slice mode the partials (acc
+    (B, H, P, D), ml (B, H, P, 2)) float32 for ``merge_partials``.
     """
+    sliced = page_stride is not None
+    if q.device.type == "meta":       # shapes only (launch.dryrun)
+        if not sliced:
+            return torch.empty_like(q)
+        B, H, D = q.shape
+        return (torch.empty((B, H, 1, D), device="meta"),
+                torch.empty((B, H, 1, 2), device="meta"))
     if q.device.type == "cpu":
         return paged_attention_ref(q, kpool, vpool, page_table, seq_lens,
-                                   scale=scale, kscale=kscale, vscale=vscale)
+                                   scale=scale, kscale=kscale, vscale=vscale,
+                                   page_stride=page_stride,
+                                   token_offset=token_offset,
+                                   partials=sliced)
     if scale is None:
         scale = float(1.0 / (q.shape[-1] ** 0.5))
-    out = _cuda.launch_paged_attn(q, kpool, vpool, page_table, seq_lens,
-                                  scale, kscale=kscale, vscale=vscale)
+    if sliced:
+        out = _cuda.launch_paged_attn_slice(
+            q, kpool, vpool, page_table, seq_lens, scale, page_stride,
+            token_offset, kscale=kscale, vscale=vscale)
+    else:
+        out = _cuda.launch_paged_attn(q, kpool, vpool, page_table, seq_lens,
+                                      scale, kscale=kscale, vscale=vscale)
     if q.shape[0]:                # an empty batch launches nothing
         paged_attention.launches += 1
+        if sliced:
+            paged_attention.slice_launches += 1
         if kscale is not None:
             paged_attention.int8_launches += 1
         if q.dtype == torch.float32:
@@ -65,3 +95,23 @@ def paged_attention(q, kpool, vpool, page_table, seq_lens, scale=None,
 paged_attention.launches = 0        # kernel launches since the last reset
 paged_attention.int8_launches = 0   # of them, launches of the int8 mode
 paged_attention.float32_launches = 0  # ... of the float32-q (CUDA-core) loop
+paged_attention.slice_launches = 0  # ... of the page-token slice mode
+
+
+def merge_partials(acc, ml, dtype):
+    """Partials acc (..., P, D) and ml (..., P, 2) float32 (the slices'
+    splits, in the order they are summed) merged into (..., D) ``dtype``:
+    the merge kernel on a card, ``merge_partials_ref`` on the CPU."""
+    if acc.device.type == "meta":     # shapes only (launch.dryrun)
+        return torch.empty(tuple(acc.shape[:-2]) + acc.shape[-1:],
+                           dtype=dtype, device="meta")
+    if acc.device.type == "cpu":
+        return merge_partials_ref(acc, ml, dtype)
+    out = _cuda.launch_paged_attn_merge(acc.contiguous(), ml.contiguous(),
+                                        dtype)
+    if out.numel():
+        merge_partials.launches += 1
+    return out
+
+
+merge_partials.launches = 0         # merge-kernel launches since the reset

@@ -9,6 +9,11 @@ as the reference's ``_paged_layer_step`` does (multiplied in float32,
 rounded once to the model's dtype) before the same softmax.  The int8
 rule itself, ``quant_store`` and ``dequant``, lives here once: the KV
 cache, the merged decode path and this yardstick all use it.
+
+The page-token slice mode (split-KV decode over a mesh whose model axis
+splits each page's tokens) attends over a slice of each page and returns
+partials; ``merge_partials_ref`` merges the slices' partials as the
+kernel's merge does.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ def dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def paged_attention_ref(q, kpool, vpool, page_table, seq_lens, scale=None,
-                        kscale=None, vscale=None):
+                        kscale=None, vscale=None, page_stride=None,
+                        token_offset=0, partials=False):
     """Reference paged decode attention.
 
     Args:
@@ -48,8 +54,18 @@ def paged_attention_ref(q, kpool, vpool, page_table, seq_lens, scale=None,
       seq_lens:   (B,) int32 — tokens currently in each sequence's cache
       kscale, vscale: (NP, KVH, PS, 1) float32 scales of int8 pools, or
                   None for pools in q's dtype
+      page_stride, token_offset: the page-token slice mode: the pools hold
+                  PS of each page's ``page_stride`` tokens, from token
+                  ``token_offset`` on (local row j of logical page p is
+                  token p * page_stride + token_offset + j); None: whole
+                  pages
+      partials:   return the slice's partials for ``merge_partials_ref``
+                  instead of the output
     Returns:
-      (B, H, D) attention output, same dtype as q.
+      (B, H, D) attention output, same dtype as q; with ``partials``,
+      (acc (B, H, 1, D), ml (B, H, 1, 2)) float32: the slice's normalised
+      output and (its log-sum-exp, 1), or (zeros, (-inf, 0)) for a slice
+      with no live token.
     """
     B, H, D = q.shape
     NP, KVH, PS, _ = kpool.shape
@@ -69,11 +85,35 @@ def paged_attention_ref(q, kpool, vpool, page_table, seq_lens, scale=None,
     qg = q.reshape(B, KVH, G, D).to(F32)
     s = torch.einsum("bkgd,bktd->bkgt", qg, k.to(F32)) * scale
 
-    pos = torch.arange(MAXP * PS, device=q.device)[None]     # (1, T)
-    live = (pos < seq_lens[:, None]) & torch.repeat_interleave(
+    pos = torch.arange(MAXP * PS, device=q.device)
+    stride = PS if page_stride is None else page_stride
+    tok = (pos // PS) * stride + token_offset + pos % PS   # pos: whole pages
+    live = (tok[None] < seq_lens[:, None]) & torch.repeat_interleave(
         page_table >= 0, PS, dim=1)
     s = s.masked_fill(~live[:, None, None, :], float("-inf"))
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    p = p / p.sum(-1, keepdim=True)
+    top = s.amax(-1, keepdim=True)
+    p = torch.exp(s - top)
+    total = p.sum(-1, keepdim=True)
+    p = p / total
     out = torch.einsum("bkgt,bktd->bkgd", p, v.to(F32))
-    return out.reshape(B, H, D).to(q.dtype)
+    if not partials:
+        return out.reshape(B, H, D).to(q.dtype)
+    empty = ~live.any(1)[:, None, None, None]
+    acc = torch.where(empty, 0.0, out).reshape(B, H, 1, D)
+    lse = torch.where(empty, float("-inf"), top + torch.log(total))
+    ml = torch.stack([lse, (~empty).to(F32).expand_as(lse)], -1)
+    return acc, ml.reshape(B, H, 1, 2)
+
+
+def merge_partials_ref(acc, ml, dtype):
+    """Partials of slices (and splits) merged into the output: acc (..., P,
+    D) and ml (..., P, 2) float32, (m, l) per partial, summed in P order,
+    each weighed by exp(m - max m) (0 for an empty one, m = -inf); the
+    output acc-sum / max(l-sum, 1e-30) in ``dtype`` (zeros where every
+    partial is empty), as the kernel's merge.  One partial of the plain
+    slice mode, (out, (lse, 1)), gives out back bit for bit."""
+    m, l = ml[..., 0], ml[..., 1]
+    top = m.amax(-1, keepdim=True)
+    w = torch.where(m == float("-inf"), 0.0, torch.exp(m - top))
+    total = (w * l).sum(-1, keepdim=True).clamp(min=1e-30)
+    return ((w[..., None] * acc).sum(-2) / total).to(dtype)

@@ -23,9 +23,12 @@ The HLO text parsers (``collective_bytes``, ``collective_bytes_weighted``)
 are the reference's, kept for HLO text a caller has.  The continuity KV
 service itself runs as pseudo-arch ``continuity-kv`` (read / write /
 level-style 4-fetch read).  The paged prefill and decode cells of the
-full-attention families are recorded as skipped: the port's paged serving
-step translates pages through the store on the host and attends with a
-kernel on local tensors, and has no multi-device path.
+full-attention families run the serving engine on rank 0's shard of the
+paged cache (``kvcache.shard_cache``: its data shard's pages, its slice of
+each page's tokens, split-KV over the model axis), with the reference's
+overrides (``page_size``, ``oversub``, ``kv_dtype``, ``paged_merged``,
+``serve_bf16``); on meta tensors the page-table upkeep and the attention
+kernel give shapes only.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k
@@ -365,14 +368,6 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         return {"arch": arch, "shape": shape_name,
                 "mesh": _mesh_tag(multi_pod),
                 "status": "skipped", "reason": why}, None
-    if shape.kind != "train" and cfg.family not in ("ssm", "hybrid"):
-        return {"arch": arch, "shape": shape_name,
-                "mesh": _mesh_tag(multi_pod), "status": "skipped",
-                "reason": "the port's paged serving step has no "
-                          "multi-device path (page translation through the "
-                          "store on the host, attention kernel on local "
-                          "tensors)"}, None
-
     chips = 512 if multi_pod else 256
     dp = chips // 16                      # pod x data extent
     # sequence parallelism (Megatron-SP): shard the residual stream's seq
@@ -414,14 +409,36 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                 p = SH.distribute(params, T.param_logical_axes(cfg, params))
                 x = SH.shard(batch["inputs"], "batch",
                              *(None,) * (batch["inputs"].dim() - 1))
-                if shape.kind == "prefill":
+                from repro_torch.serving import engine as E
+                if cfg.family not in ("ssm", "hybrid"):
+                    # the paged cache, this rank's shard of it (its data
+                    # shard's pages, its slice of each page's tokens)
+                    over = overrides or {}
+                    geom = KC.make_geometry(
+                        cfg, shape, shards=dp,
+                        page_size=over.get("page_size", 512),
+                        oversub=over.get("oversub", 1.0),
+                        kv_dtype=over.get("kv_dtype"),
+                        merged_attn=(shape.kind == "decode"
+                                     and over.get("paged_merged", False)),
+                        device="meta")
+                    geom, cache = KC.shard_cache(geom,
+                                                 KC.create_cache(geom))
+                    args = local_bytes(p, x, cache)
+                    with counter:
+                        if shape.kind == "prefill":
+                            logits, cache = E.prefill(cfg, geom, p, x, cache)
+                        else:
+                            logits, cache = E.serve_step(cfg, geom, p, x,
+                                                         cache)
+                    outs = local_bytes(logits, cache)
+                elif shape.kind == "prefill":
                     # recurrent archs: prefill = full forward
                     with counter, implicit_replication():
                         logits = T.logits_fn(
                             cfg, p, T.forward(cfg, p, x)[0][:, -1])
                     args, outs = local_bytes(p, x), local_bytes(logits)
                 else:
-                    from repro_torch.serving import engine as E
                     cache = KC.create_state_cache(
                         cfg, shape.global_batch, shape.seq_len,
                         dtype=torch.bfloat16, device="meta")

@@ -31,7 +31,10 @@ open page (int8 pools: quantized, with its scales), and attends with the
 paged-attention kernel directly on the pool through the page table, with
 no gather (``geom.merged_attn``: the reference's legacy path, pages
 gathered and merged before a plain attention).  The pools are updated in
-place.  SSM and hybrid decode carry a state cache instead
+place.  Under a mesh each rank holds its shard of the cache (its data
+shards' sequences, its slice of each page's tokens) and attends over it
+with the kernel's page-token slice mode, the slices' partials merged
+over the model axis ("split-KV" decode, the reference's GSPMD layout).  SSM and hybrid decode carry a state cache instead
 (``kvcache.create_state_cache``: recurrent state, conv windows, hybrid's
 ring buffers and global linear caches), also updated in place.
 """
@@ -500,6 +503,12 @@ def _rope_step(cfg, q, k, positions):
 
 def _qkv_step(cfg, p, h, positions):
     """h (B, E) -> q (B,H,D), k,v (B,KVH,D) with rope applied."""
+    q, k, v = _qkv_proj(cfg, p, h)
+    return (*_rope_step(cfg, q, k, positions), v)
+
+
+def _qkv_proj(cfg, p, h):
+    """h (B, E) -> q (B,H,D), k,v (B,KVH,D) before rope."""
     B = h.shape[0]
     H, KVH, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = h @ p["wq"].to(h.dtype)
@@ -511,7 +520,7 @@ def _qkv_step(cfg, p, h, positions):
     q = _split_heads(q, H, D, "heads")
     k = _split_heads(k, KVH, D, "kv_heads")
     v = _split_heads(v, KVH, D, "kv_heads")
-    return (*_rope_step(cfg, q, k, positions), v)
+    return q, k, v
 
 
 def _ffn_step(cfg, p, x):
@@ -519,18 +528,25 @@ def _ffn_step(cfg, p, x):
     return x + ffn(cfg, p, h2[:, None])[0][:, 0]
 
 
-def _merged_attention(geom, q, kpool, vpool, kscale, vscale, page_table,
-                      lens, dtype):
-    """The reference's legacy decode path (``geom.merged_attn``): every page
-    of the table gathered (an unmapped one as page 0, masked by the
-    length), dequantized to ``dtype`` when int8, (MAXP, PS) merged into one
-    token range, and plain decode attention over it.  No kernel."""
-    B = q.shape[0]
+def _gathered_pages(kpool, vpool, kscale, vscale, page_table, dtype):
+    """Every page of the table gathered (an unmapped one as page 0, masked
+    later by the length), dequantized to ``dtype`` when int8: (B, MAXP,
+    KVH, PS, D) each."""
     pt = page_table.clamp(min=0).long()
-    kg, vg = kpool[pt], vpool[pt]                # (B, MAXP, KVH, PS, D)
+    kg, vg = kpool[pt], vpool[pt]
     if kscale is not None:
         kg = KC.dequant(kg, kscale[pt], dtype)
         vg = KC.dequant(vg, vscale[pt], dtype)
+    return kg, vg
+
+
+def _merged_attention(geom, q, kpool, vpool, kscale, vscale, page_table,
+                      lens, dtype):
+    """The reference's legacy decode path (``geom.merged_attn``): the
+    gathered pages (MAXP, PS) merged into one token range, and plain decode
+    attention over it.  No kernel."""
+    B = q.shape[0]
+    kg, vg = _gathered_pages(kpool, vpool, kscale, vscale, page_table, dtype)
     T_ = geom.max_pages * geom.page_size
 
     def merged(g):
@@ -544,6 +560,45 @@ def _merged_attention(geom, q, kpool, vpool, kscale, vscale, page_table,
     return L.decode_attention(q, kf, vf, lens)
 
 
+def _store_token(geom, cache, k, v, kpool, vpool, kscale, vscale):
+    """The new token's k/v (B, KVH, D) written in place at each sequence's
+    open page of this layer's pools (DS, NPl, KVH, PS, D) (int8 pools: its
+    ``quant_store`` values, its scales into kscale/vscale); over page-token
+    slices only the rank whose slice holds ``cur_off`` writes.  Returns the
+    pools and scales viewed as (DS*NPl, ...), the kernel's layout."""
+    DS, Bl = geom.shards, geom.batch_per_shard
+    B = DS * Bl
+    rows = torch.arange(DS, device=k.device).repeat_interleave(Bl)
+    page = cache.cur_page.reshape(B).long()
+    slot = cache.cur_off.reshape(B).long() - geom.token_offset
+    mine = None
+    if geom.page_slices > 1:
+        mine = (slot >= 0) & (slot < geom.slice_tokens)
+        slot = slot.clamp(0, geom.slice_tokens - 1)
+    if kscale is not None:
+        k, ks = KC.quant_store(k)
+        v, vs = KC.quant_store(v)
+        _write_slot(kscale, rows, page, slot, mine, ks)
+        _write_slot(vscale, rows, page, slot, mine, vs)
+    _write_slot(kpool, rows, page, slot, mine, k)
+    _write_slot(vpool, rows, page, slot, mine, v)
+
+    def flat(pool):
+        if pool is None:
+            return None
+        return pool.view((DS * geom.pool_pages,) + tuple(pool.shape[2:]))
+    return flat(kpool), flat(vpool), flat(kscale), flat(vscale)
+
+
+def _write_slot(pool, rows, page, slot, mine, val) -> None:
+    """``pool[rows, page, :, slot] = val`` in place; where ``mine`` is given,
+    only its rows are written (the others write back what they read)."""
+    val = val.to(pool.dtype)
+    if mine is not None:
+        val = torch.where(mine[:, None, None], val, pool[rows, page, :, slot])
+    pool[rows, page, :, slot] = val
+
+
 def _paged_layer_step(cfg, geom, p, x, kpool, vpool, page_table, cache,
                       kscale=None, vscale=None):
     """One decoder layer of paged decode.  kpool/vpool: this layer's pool
@@ -551,46 +606,155 @@ def _paged_layer_step(cfg, geom, p, x, kpool, vpool, page_table, cache,
     (int8 pools: the token's ``quant_store`` values, its scales into
     kscale/vscale (DS, NPl, KVH, PS, 1)); page_table: (B, MAXP) ids into
     the pool viewed as (DS*NPl, ...)."""
-    DS, Bl = geom.shards, geom.batch_per_shard
-    B = DS * Bl
+    B = geom.shards * geom.batch_per_shard
     positions = cache.seq_lens.reshape(B)
     h = L.apply_norm(cfg, p, "ln1", x)
     q, k, v = _qkv_step(cfg, p, h, positions)
-    shard = torch.arange(DS, device=x.device).repeat_interleave(Bl)
-    page, off = cache.cur_page.reshape(B).long(), cache.cur_off.reshape(B).long()
-    if kscale is not None:
-        k, ks = KC.quant_store(k)
-        v, vs = KC.quant_store(v)
-        kscale[shard, page, :, off] = ks
-        vscale[shard, page, :, off] = vs
-    kpool[shard, page, :, off] = k.to(kpool.dtype)
-    vpool[shard, page, :, off] = v.to(vpool.dtype)
-
-    def flat(pool):
-        if pool is None:
-            return None
-        return pool.view((DS * geom.pool_pages,) + tuple(pool.shape[2:]))
-    args = (q, flat(kpool), flat(vpool))
+    fk, fv, fks, fvs = _store_token(geom, cache, k, v, kpool, vpool, kscale,
+                                    vscale)
     lens = positions + 1
     if geom.merged_attn:
-        attn = _merged_attention(geom, *args, flat(kscale), flat(vscale),
-                                 page_table, lens, x.dtype)
+        attn = _merged_attention(geom, q, fk, fv, fks, fvs, page_table, lens,
+                                 x.dtype)
     else:
-        attn = K.paged_attention(*args, page_table, lens,
-                                 kscale=flat(kscale), vscale=flat(vscale))
+        attn = K.paged_attention(q, fk, fv, page_table, lens, kscale=fks,
+                                 vscale=fvs)
     x = x + attn.reshape(B, cfg.n_heads * cfg.hd) @ p["wo"].to(x.dtype)
+    return _ffn_step(cfg, p, x)
+
+
+def _batch_local(t):
+    """A DTensor's rows of this rank's sequences with every other dim whole
+    (gathered over the model axis), as a plain contiguous tensor."""
+    spec = SH.logical_spec("batch", *(None,) * (t.dim() - 1),
+                           size_of=tuple(t.shape))
+    mesh = t.device_mesh
+    return SH.to_placements(t, mesh, SH.placements(spec, mesh)).to_local() \
+        .contiguous()
+
+
+def _head_group(mesh, H: int, D: int):
+    """(first head, heads, first column, columns) of this rank's share of
+    the attention output (B, H * D): its row shard of ``wo``.  Where the
+    heads divide over the model axis it is a group of whole heads; where
+    only H * D does (40 heads on 16 ranks), the rank needs every head and
+    keeps its columns."""
+    first, count = SH.chunk_of(SH.logical_spec("heads",
+                                               size_of=(H * D,))[0], mesh)
+    cols = H * D // count
+    if H % count:
+        return 0, H, first * cols, cols
+    return first * (H // count), H // count, 0, cols
+
+
+def _all_gather(x, dim: int, group):
+    """The model group's ``x`` concatenated along ``dim`` in rank order (a
+    functional collective, which ``CommDebugMode`` counts); waited on."""
+    import torch.distributed._functional_collectives as funcol
+    gather = getattr(funcol, "all_gather_single", None) or \
+        funcol.all_gather_tensor      # the name in older torch releases
+    return funcol.wait_tensor(gather(x.contiguous(), dim, group))
+
+
+def _merge_slices(geom, mesh, acc, ml, dtype, first: int, nh: int):
+    """This rank's heads ``[first, first + nh)`` of the attention output
+    from the page-token slices' partials (acc (B, H, S, D), ml (B, H, S,
+    2): its own slice's splits).  Over m > 1 slices the model group
+    exchanges them, one ``all_to_all_single`` by head group where the
+    heads divide over the model axis (else an ``all_gather`` of every
+    head), and the merge kernel sums every slice's splits in rank order."""
+    import torch.distributed._functional_collectives as funcol
+    m = geom.page_slices
+    B, H, S, D = acc.shape
+    if m == 1:
+        return K.merge_partials(acc[:, first:first + nh],
+                                ml[:, first:first + nh], dtype)
+    group = mesh.get_group("model")
+    buf = torch.cat([acc, ml], -1)                   # (B, H, S, D + 2)
+    if nh * m == H:
+        send = buf.reshape(B, m, nh, S, D + 2).movedim(1, 0).contiguous()
+        recv = funcol.wait_tensor(
+            funcol.all_to_all_single(send, None, None, group))
+    else:
+        recv = _all_gather(buf[None], 0, group)
+    parts = recv.movedim(0, 2).reshape(B, nh, m * S, D + 2)
+    return K.merge_partials(parts[..., :D].contiguous(),
+                            parts[..., D:].contiguous(), dtype)
+
+
+def _merged_slices(geom, mesh, q, kpool, vpool, kscale, vscale, page_table,
+                   lens, dtype):
+    """The merged path under a mesh: this rank's token slice of every page
+    of the table gathered, the model group's slices all-gathered into
+    whole pages (the reference's constraint keeps the gathered pages
+    split over the model axis, and merging (MAXP, PS) into one token range
+    gathers them), then plain decode attention over the merged range."""
+    kg, vg = _gathered_pages(kpool, vpool, kscale, vscale, page_table, dtype)
+    if geom.page_slices > 1:
+        group = mesh.get_group("model")
+        kg, vg = (_all_gather(g, 3, group) for g in (kg, vg))
+    B = q.shape[0]
+    T_ = geom.max_pages * geom.page_size
+    kf, vf = (g.movedim(3, 2).reshape(B, T_, geom.kv_heads, geom.head_dim)
+              for g in (kg, vg))
+    return L.decode_attention(q, kf, vf, lens)
+
+
+def _sharded_layer_step(cfg, geom, p, x, kpool, vpool, page_table, cache,
+                        kscale=None, vscale=None):
+    """``_paged_layer_step`` under a mesh: ``x`` a DTensor (B, E) of the
+    global batch; the pools, page table and cache fields this rank's shard
+    (``kvcache.shard_cache``: its sequences, its token slice of each
+    page).  The projections run on the DTensors (q over the heads' shard);
+    q, k and v are gathered to this rank's sequences with every head.  The
+    rank whose slice holds ``cur_off`` writes the new token (int8: its
+    ``quant_store`` values and scales), and every rank attends over its
+    slice with the kernel's slice mode for all H heads, the partials
+    merged over the model group (``_merge_slices``); the output projection
+    takes the rank's head group as a DTensor again."""
+    from torch.distributed.tensor import DTensor
+    mesh = x.device_mesh
+    B, H, D = geom.shards * geom.batch_per_shard, cfg.n_heads, cfg.hd
+    positions = cache.seq_lens.reshape(B)
+    h = L.apply_norm(cfg, p, "ln1", x)
+    q, k, v = (_batch_local(t) for t in _qkv_proj(cfg, p, h))
+    q, k = _rope_step(cfg, q, k, positions)
+    fk, fv, fks, fvs = _store_token(geom, cache, k, v, kpool, vpool, kscale,
+                                    vscale)
+    lens = positions + 1
+    first, nh, col, cols = _head_group(mesh, H, D)
+    if geom.merged_attn:
+        out = _merged_slices(geom, mesh, q, fk, fv, fks, fvs, page_table,
+                             lens, x.dtype)[:, first:first + nh]
+    else:
+        acc, ml = K.paged_attention(q, fk, fv, page_table, lens, kscale=fks,
+                                    vscale=fvs, page_stride=geom.page_size,
+                                    token_offset=geom.token_offset)
+        out = _merge_slices(geom, mesh, acc, ml, x.dtype, first, nh)
+    shape = torch.Size((x.shape[0], H * D))
+    pl = SH.placements(SH.logical_spec("batch", "heads", size_of=shape), mesh)
+    attn = DTensor.from_local(out.reshape(B, nh * D)[:, col:col + cols],
+                              mesh, pl, run_check=False, shape=shape,
+                              stride=(H * D, 1))
+    x = x + attn @ p["wo"].to(x.dtype)
     return _ffn_step(cfg, p, x)
 
 
 def paged_layers(cfg: ModelConfig, params: dict, tokens, cache, geom,
                  page_table):
     """The decode step's layer stack: tokens (B,) -> hidden (B, E) before
-    the final norm.  ``page_table``: ``lookup_pages``' (DS, Bl, MAXP)."""
+    the final norm.  ``page_table``: ``lookup_pages``' (DS, Bl, MAXP).
+    Under a mesh ``tokens`` are the global batch's, the cache and page
+    table this rank's shard, and the hidden state a DTensor."""
     pt = KC.flat_page_table(geom, page_table)
+    sharded = SH.get_mesh() is not None
+    if sharded:
+        tokens = shard(tokens, "batch")
     x = shard(embed(cfg, params, tokens), "batch", "embed")
+    step = _sharded_layer_step if sharded else _paged_layer_step
     quant = cache.kscale is not None
     for layer in range(cfg.n_layers):
-        x = _paged_layer_step(
+        x = step(
             cfg, geom, layer_params(params, layer), x, cache.kpool[layer],
             cache.vpool[layer], pt, cache,
             cache.kscale[layer] if quant else None,
@@ -601,11 +765,15 @@ def paged_layers(cfg: ModelConfig, params: dict, tokens, cache, geom,
 def paged_decode_step(cfg: ModelConfig, params: dict, tokens, cache, geom):
     """tokens (B,) int -> (logits (B, V), cache).  The page table is
     re-translated through the continuity hash table every step (client
-    reads); page opening/commit bookkeeping is in serving/engine.py."""
+    reads); page opening/commit bookkeeping is in serving/engine.py.
+    Under a mesh the cache is this rank's shard (``kvcache.shard_cache``)
+    and the logits the full tensor on every rank."""
     _require_paged(cfg)
     page_table = KC.lookup_pages(geom, cache.table, cache.seq_ids)
-    x = paged_layers(cfg, params, tokens, cache, geom, page_table)
-    return logits_fn(cfg, params, final_norm(cfg, params, x)), cache
+    with SH.mesh_context():
+        x = paged_layers(cfg, params, tokens, cache, geom, page_table)
+        logits = logits_fn(cfg, params, final_norm(cfg, params, x))
+        return SH.gather(logits), cache
 
 
 def ssm_decode_step(cfg: ModelConfig, params: dict, tokens, cache):

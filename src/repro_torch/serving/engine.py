@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.core.hashfn import fold_u32, mix_pair
 from repro_torch.core.words import to_i32
+from repro_torch.distribution import sharding as SH
 from repro_torch.distribution.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -79,7 +80,14 @@ def prefill(cfg: ModelConfig, geom: KC.PageGeometry, params: dict,
     cache. ``inputs``: (B, S) tokens or (B, S, E) embeds; S must be a
     multiple of page_size for the bulk page fill (pad upstream).
 
-    Returns (last-position logits (B, V), cache)."""
+    Under a mesh ``inputs`` are the global batch's, ``geom`` and ``cache``
+    this rank's shard (``kvcache.shard_cache``): the forward runs under the
+    model's tensor-parallel annotations, each rank fills its sequences'
+    pages with its slice of each page's tokens and inserts their mappings
+    into its own page tables.
+
+    Returns (last-position logits (B, V), cache); under a mesh the logits
+    are the full tensor on every rank."""
     T._require_paged(cfg)
     DS, Bl, PS = geom.shards, geom.batch_per_shard, geom.page_size
     S = inputs.shape[1]
@@ -88,46 +96,55 @@ def prefill(cfg: ModelConfig, geom: KC.PageGeometry, params: dict,
                          f"size {PS}")
     npages = S // PS
     KVH = geom.kv_heads
+    off, PSl = geom.token_offset, geom.slice_tokens
     dev = cache.kpool.device
+    sharded = SH.get_mesh() is not None
 
-    x = shard(T.embed(cfg, params, inputs), "batch", "seq", "embed")
-    positions = torch.arange(S, device=dev)[None]
     # deterministic physical layout for prompt pages: seq-major
     phys = (torch.arange(Bl * npages, dtype=I32, device=dev)
             .reshape(1, Bl, npages).expand(DS, Bl, npages)) % geom.pool_pages
     pf = phys.reshape(DS, Bl * npages).long()
 
-    def page_major(t):       # (B, S, KVH, X) -> (DS, Bl * NP, KVH, PS, X)
-        t = t.reshape(DS, Bl, npages, PS, KVH, t.shape[-1]).movedim(3, 4)
-        return t.reshape(DS, Bl * npages, KVH, PS, t.shape[-1])
+    def page_major(t):       # (B, S, KVH, X) -> (DS, Bl * NP, KVH, PSl, X)
+        t = t.reshape(DS, Bl, npages, PS, KVH, t.shape[-1])
+        t = t[:, :, :, off:off + PSl].movedim(3, 4)   # this rank's slice
+        return t.reshape(DS, Bl * npages, KVH, PSl, t.shape[-1])
 
     def put(pool, pages):    # one layer's pool (DS, NPl, ...) <- pages
         for s in range(DS):
             pool[s, pf[s]] = pages[s]
 
-    for layer in range(cfg.n_layers):
-        p = T.layer_params(params, layer)
-        h = L.apply_norm(cfg, p, "ln1", x)
-        attn, (k, v) = T._attn_heads(cfg, p, h, positions, cfg.window)
-        x = x + shard(attn @ p["wo"].to(x.dtype), "batch", "seq", "embed")
-        x = x + T.ffn(cfg, p, L.apply_norm(cfg, p, "ln2", x))[0]
-        # bulk page fill: (B,S,KVH,D) -> (DS,Bl*NP,KVH,PS,D) -> pool scatter
-        for pools, scales, kv in ((cache.kpool, cache.kscale, k),
-                                  (cache.vpool, cache.vscale, v)):
-            if scales is not None:       # int8: quantized, with its scales
-                kv, sc = KC.quant_store(kv)
-                put(scales[layer], page_major(sc))
-            put(pools[layer], page_major(kv).to(pools.dtype))
-    x = T.final_norm(cfg, params, x)
-    logits = T.logits_fn(cfg, params, x[:, -1])
+    with SH.mesh_context():
+        if sharded:
+            inputs = shard(inputs, "batch", *(None,) * (inputs.dim() - 1))
+        x = shard(T.embed(cfg, params, inputs), "batch", "seq", "embed")
+        positions = torch.arange(S, device=dev)[None]
+        for layer in range(cfg.n_layers):
+            p = T.layer_params(params, layer)
+            h = L.apply_norm(cfg, p, "ln1", x)
+            attn, (k, v) = T._attn_heads(cfg, p, h, positions, cfg.window)
+            x = x + shard(attn @ p["wo"].to(x.dtype), "batch", "seq", "embed")
+            x = x + T.ffn(cfg, p, L.apply_norm(cfg, p, "ln2", x))[0]
+            if sharded:      # this rank's sequences, every kv head
+                k, v = T._batch_local(k), T._batch_local(v)
+            # bulk page fill: (B,S,KVH,D) -> (DS,Bl*NP,KVH,PSl,D) -> pool
+            for pools, scales, kv in ((cache.kpool, cache.kscale, k),
+                                      (cache.vpool, cache.vscale, v)):
+                if scales is not None:   # int8: quantized, with its scales
+                    kv, sc = KC.quant_store(kv)
+                    put(scales[layer], page_major(sc))
+                put(pools[layer], page_major(kv).to(pools.dtype))
+        x = T.final_norm(cfg, params, x)
+        logits = SH.gather(T.logits_fn(cfg, params, x[:, -1]))
 
     # register page mappings (server-side batched inserts via the store)
     pages = torch.arange(npages, dtype=I32, device=dev).expand(Bl, npages)
-    for s in range(DS):
-        keys = KC.page_keys(cache.seq_ids[s][:, None].expand(Bl, npages),
-                            pages)
-        geom.store.insert(cache.table[s], keys.reshape(-1, 4),
-                          KC.page_values(phys[s]).reshape(-1, 4))
+    if dev.type != "meta":            # meta: shapes only (launch.dryrun)
+        for s in range(DS):
+            keys = KC.page_keys(
+                cache.seq_ids[s][:, None].expand(Bl, npages), pages)
+            geom.store.insert(cache.table[s], keys.reshape(-1, 4),
+                              KC.page_values(phys[s]).reshape(-1, 4))
 
     plen = prompt_len if prompt_len is not None else S
 

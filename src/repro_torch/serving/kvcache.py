@@ -24,6 +24,18 @@ is the crash-checkable twin of the page allocation.
 (recurrent state, conv windows, hybrid's ring buffers and global linear
 caches); those families never touch the page table.
 
+Under a mesh (``distribution.sharding.use_mesh``) each rank holds its
+shard of the cache, as the reference's ``cache_logical_axes`` places it:
+the pools' DS dim over the data axes, each page's tokens over the model
+axis ("split-KV"), kv heads replicated; the page tables, ``next_free``
+and the sequence fields of its data shards, replicated over the model
+axis.  ``shard_cache`` cuts a global cache into the rank's shard (and a
+geometry of its data shards and page-token slice), ``gather_cache``
+gathers the shards back.  Every rank of a data group keeps its copy of
+the page tables with the same upkeep (``advance`` on its own tables), so
+the copies stay byte-equal with no collective.  On meta tensors (the
+planning tools' dry run) the page-table upkeep gives shapes only.
+
 ``kv_dtype="int8"`` stores the pools as int8 with one float32 scale per
 (token, head) in ``kscale``/``vscale`` (``quant_store``/``dequant``, the
 reference's arithmetic); the decode step attends over them with the
@@ -66,10 +78,25 @@ class PageGeometry:
     # the reference's legacy decode path: pages gathered and merged
     # (MAXP, PS) -> T before a plain attention (no attention kernel)
     merged_attn: bool = False
+    # under a mesh (``shard_cache``): each page's tokens split into
+    # ``page_slices`` slices over the model axis, this rank's the
+    # ``page_slice``-th; ``shards`` then counts this rank's data shards
+    page_slices: int = 1
+    page_slice: int = 0
 
     @property
     def batch(self) -> int:
         return self.shards * self.batch_per_shard
+
+    @property
+    def slice_tokens(self) -> int:
+        """Tokens of each page that this rank's pools hold."""
+        return self.page_size // self.page_slices
+
+    @property
+    def token_offset(self) -> int:
+        """The first of them: local row j of a page is token offset + j."""
+        return self.page_slice * self.slice_tokens
 
     @property
     def device(self) -> torch.device:
@@ -171,6 +198,92 @@ def cache_logical_axes(g: PageGeometry, cache: PagedCache):
     )
 
 
+def _local_chunk(t: torch.Tensor, names, mesh) -> torch.Tensor:
+    """This rank's chunk of ``t`` placed by logical ``names``, copied."""
+    from repro_torch.distribution.sharding import chunk_of, logical_spec
+    spec = logical_spec(*names, size_of=tuple(t.shape))
+    for d, entry in enumerate(spec):
+        idx, count = chunk_of(entry, mesh)
+        n = t.shape[d] // count
+        t = t.narrow(d, idx * n, n)
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def shard_cache(g: PageGeometry, cache: PagedCache):
+    """This rank's shard of a global cache under the active mesh
+    (``distribution.sharding.use_mesh``), placed by ``cache_logical_axes``:
+    the pools (L, DS/d, NPl, KVH, PS/m, D) (and the int8 scales alike), the
+    page tables and sequence fields of its DS/d data shards, every tensor a
+    copy.  Returns (local geometry, local cache): ``shards`` DS/d, the
+    page-token slice (``page_slices`` m, ``page_slice`` this rank's model
+    coordinate).  Where PS does not divide by the model extent the pools'
+    page-token dim stays replicated (``logical_spec``'s rule) and the rank
+    reads whole pages; kv heads stay replicated (``kv_heads_dec``)."""
+    from repro_torch.distribution.sharding import (chunk_of, get_mesh,
+                                                   logical_spec)
+    mesh = get_mesh()
+    if mesh is None:
+        raise ValueError("shard_cache runs under distribution.sharding."
+                         "use_mesh")
+    ax = cache_logical_axes(g, cache)
+    pool_spec = logical_spec(*ax.kpool, size_of=tuple(cache.kpool.shape))
+    ds_idx, d = chunk_of(pool_spec[1], mesh)
+    if g.shards % d:
+        raise ValueError(f"{g.shards} data shards do not split over {d} "
+                         f"data ranks")
+    r, m = chunk_of(pool_spec[4], mesh)
+    ds = g.shards // d
+    lg = dataclasses.replace(g, shards=ds, page_slices=m, page_slice=r)
+
+    def chunk(t, names):
+        return None if t is None else _local_chunk(t, names, mesh)
+    table = tuple(type(t)(*(x.clone() for x in t))
+                  for t in cache.table[ds_idx * ds:(ds_idx + 1) * ds])
+    return lg, PagedCache(
+        kpool=chunk(cache.kpool, ax.kpool), vpool=chunk(cache.vpool, ax.vpool),
+        kscale=chunk(cache.kscale, ax.kscale),
+        vscale=chunk(cache.vscale, ax.vscale), table=table,
+        **{f: chunk(getattr(cache, f), getattr(ax, f))
+           for f in ("next_free", "seq_ids", "seq_lens", "cur_page",
+                     "cur_off")})
+
+
+def gather_cache(g: PageGeometry, local: PagedCache) -> PagedCache:
+    """The inverse of ``shard_cache`` under the active mesh: the global
+    cache of geometry ``g`` (the global one) from every rank's shard, on
+    every rank (collectives over the mesh; for checks).  Replicated fields
+    are taken from each rank's own copy."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distribution.sharding import (get_mesh, logical_spec,
+                                                   placements)
+    mesh = get_mesh()
+    ax = cache_logical_axes(g, local)
+    DS, Bl = g.shards, g.batch_per_shard
+    pool = pool_shape(g)
+    shapes = dict(kpool=pool, vpool=pool, kscale=pool[:-1] + (1,),
+                  vscale=pool[:-1] + (1,), next_free=(DS,), seq_ids=(DS, Bl),
+                  seq_lens=(DS, Bl), cur_page=(DS, Bl), cur_off=(DS, Bl))
+
+    def full(t, names, shape):
+        if t is None:
+            return None
+        shape = torch.Size(shape)
+        pl = placements(logical_spec(*names, size_of=tuple(shape)), mesh)
+        return DTensor.from_local(
+            t.contiguous(), mesh, pl, run_check=False, shape=shape,
+            stride=torch.empty(shape, device="meta").stride()).full_tensor()
+    t0 = local.table[0]
+    leaves = []
+    for f in t0._fields:
+        x = torch.stack([getattr(t, f) for t in local.table])
+        leaves.append(full(x, ("kv_shard",) + (None,) * (x.dim() - 1),
+                           (DS,) + tuple(x.shape[1:])))
+    table = tuple(type(t0)(*(x[s] for x in leaves)) for s in range(DS))
+    return PagedCache(table=table, **{
+        f: full(getattr(local, f), getattr(ax, f), shapes[f])
+        for f in shapes})
+
+
 # -- page-key construction ---------------------------------------------------
 
 def page_keys(seq_ids: torch.Tensor, logical_pages: torch.Tensor) -> torch.Tensor:
@@ -204,6 +317,8 @@ def lookup_pages(g: PageGeometry, table, seq_ids: torch.Tensor) -> torch.Tensor:
     translation). Returns (DS, Bl, MAXP) int32 physical ids, -1 where
     unmapped."""
     DS, Bl = seq_ids.shape
+    if seq_ids.device.type == "meta":   # shapes only (launch.dryrun)
+        return torch.empty((DS, Bl, g.max_pages), dtype=I32, device="meta")
     keys = _translation_keys(g, seq_ids)
     phys = []
     for s in range(DS):
@@ -264,8 +379,9 @@ def open_new_pages(g: PageGeometry, cache: PagedCache,
     the (seq, page) -> phys mapping into the hash table (server-side write:
     payload slots first, ONE atomic indicator commit), and open the page."""
     phys, keys, vals = _plan_page_allocation(g, cache, need)
-    for s in range(g.shards):
-        g.store.insert(cache.table[s], keys[s], vals[s], need[s])
+    if need.device.type != "meta":     # meta: shapes only (launch.dryrun)
+        for s in range(g.shards):
+            g.store.insert(cache.table[s], keys[s], vals[s], need[s])
     return _open_pages_epilogue(cache, need, phys)
 
 

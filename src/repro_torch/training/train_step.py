@@ -16,7 +16,6 @@ masks, the rope table) act as replicated.
 
 from __future__ import annotations
 
-import contextlib
 
 import torch
 
@@ -106,12 +105,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptConfig,
     grad_dtype = getattr(torch, opt_cfg.grad_dtype)
 
     def train_step(params, opt_state, batch):
-        ctx = contextlib.nullcontext()
-        if SH.get_mesh() is not None:
-            from torch.distributed.tensor.experimental import \
-                implicit_replication
-            ctx = implicit_replication()
-        with ctx:
+        with SH.mesh_context():
             loss, grads = microbatch_grads(cfg, params, batch, num_micro,
                                            grad_dtype)
             params, opt_state, stats = O.apply_updates(opt_cfg, params,

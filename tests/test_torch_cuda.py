@@ -614,6 +614,153 @@ def test_paged_attention_makes_no_host_sync(dev):
         assert bool(out.float().isfinite().all())
 
 
+ROUTES = {0: (torch.float32, False), 1: (torch.bfloat16, False),
+          2: (torch.float32, True), 3: (torch.bfloat16, True)}
+
+
+def slice_case(dev, route, G, D, PS, m, seed=0):
+    """A slice-mode case of ``route`` (q's dtype, int8 pools or not):
+    lengths leaving whole slices of the last page with no live token, or
+    every slice but the first empty (length 1)."""
+    dtype, quant = ROUTES[route]
+    MAXP = 4
+    lens = [1, PS // m, PS + 1, 2 * PS - 1, 3 * PS + PS // 2, MAXP * PS]
+    q, kp, vp, pt, ln = on(attn_case(seed, len(lens), 2 * G, 2, D, PS, MAXP,
+                                     lens=lens), dev, torch.float32)
+    kw = {}
+    if quant:
+        (kp, ks), (vp, vs) = KC.quant_store(kp), KC.quant_store(vp)
+        kw = {"kscale": ks, "vscale": vs}
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    return (q.to(dtype), kp, vp, pt, ln), kw
+
+
+def slice_of(t, m, r):
+    n = t.shape[2] // m
+    return t[:, :, r * n:(r + 1) * n].contiguous()
+
+
+def run_slices(args, kw, m, fn=paged_attn.paged_attention,
+               merge=paged_attn.merge_partials):
+    """Every slice's partials through ``fn``, merged by ``merge``."""
+    q, kp, vp, pt, lens = args
+    PS = kp.shape[2]
+    parts = [fn(q, slice_of(kp, m, r), slice_of(vp, m, r), pt, lens,
+                page_stride=PS, token_offset=r * (PS // m),
+                **{k: slice_of(v, m, r) for k, v in kw.items()})
+             for r in range(m)]
+    return merge(torch.cat([a for a, _ in parts], 2),
+                 torch.cat([b for _, b in parts], 2), q.dtype)
+
+
+def plain_slices(q, kp, vp, pt, lens, **kw):
+    return paged_attention_ref(q, kp, vp, pt, lens, partials=True, **kw)
+
+
+@pytest.mark.parametrize("route", [0, 1, 2, 3])
+@pytest.mark.parametrize("G", [1, 3, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("PS", [16, 32])
+@pytest.mark.parametrize("m", [1, 2, 4])
+def test_slice_mode_matches_plain(dev, route, G, D, PS, m):
+    """m slices of each page through the kernel's slice mode and the merge
+    kernel, against the unsliced plain version and the plain slice mode's
+    merge (float32 q 2e-5, bf16 q 6e-2); with one slice, bit-equal to the
+    whole-page launch."""
+    args, kw = slice_case(dev, route, G, D, PS, m, seed=route * 97 + G * D)
+    q = args[0]
+    tol = 2e-5 if q.dtype == torch.float32 else 6e-2
+    n0 = (paged_attn.paged_attention.slice_launches,
+          paged_attn.merge_partials.launches)
+    got = run_slices(args, kw, m)
+    torch.cuda.synchronize()
+    assert (paged_attn.paged_attention.slice_launches,
+            paged_attn.merge_partials.launches) == (n0[0] + m, n0[1] + 1)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = paged_attention_ref(*args, **kw)
+    assert float((got.float() - want.float()).abs().max()) < tol
+    plain = run_slices(args, kw, m, fn=plain_slices,
+                       merge=lambda a, b, dt: paged_attn.merge_partials_ref(
+                           a, b, dt))
+    assert float((got.float() - plain.float()).abs().max()) < tol
+    if m == 1:
+        assert torch.equal(got, paged_attn.paged_attention(*args, **kw))
+
+
+@pytest.mark.parametrize("route", [0, 1, 2, 3])
+@pytest.mark.parametrize("m", [2, 4])
+def test_slice_mode_ignores_poisoned_rows(dev, route, m):
+    """Poison in every slice row that holds no live token (past a length,
+    or of an unmapped page) leaves the merged output bit-identical."""
+    args, kw = slice_case(dev, route, 8, 128, 16, m, seed=5)
+    q, kp, vp, pt, lens = args
+    base = run_slices(args, kw, m)
+    PS, NP = kp.shape[2], kp.shape[0]
+    live = torch.zeros(NP, PS, dtype=torch.bool, device=dev)
+    for b in range(pt.shape[0]):
+        for p in range(pt.shape[1]):
+            if int(pt[b, p]) >= 0:
+                n = min(max(int(lens[b]) - p * PS, 0), PS)
+                live[int(pt[b, p]), :n] = True
+    dead = ~live[:, None, :, None].expand(kp.shape)
+    kp2, vp2 = kp.clone(), vp.clone()
+    bad = 100 if kp.dtype == torch.int8 else 1e3
+    kp2[dead], vp2[dead] = bad, -bad
+    kw2 = {k: torch.where(dead[..., :1], float("nan"), v)
+           for k, v in kw.items()}
+    assert torch.equal(run_slices((q, kp2, vp2, pt, lens), kw2, m), base)
+
+
+def test_slice_mode_makes_no_host_sync(dev):
+    """Two slices of Yi-6B's decode shape and their merge read nothing back
+    from the device, in every route."""
+    base = attn_case(4, 32, 32, 4, 128, 16, 132, lens=[2111] * 32)
+    q, kp, vp, pt, lens = on(base, dev, torch.float32)
+    (kq, ks), (vq, vs) = KC.quant_store(kp), KC.quant_store(vp)
+    cases = [((q.bfloat16(), kp.bfloat16(), vp.bfloat16(), pt, lens), {}),
+             ((q.bfloat16(), kq, vq, pt, lens), {"kscale": ks, "vscale": vs}),
+             ((q, kp, vp, pt, lens), {}),
+             ((q, kq, vq, pt, lens), {"kscale": ks, "vscale": vs})]
+    sliced = [(tuple(a[:1]) + tuple(slice_of(t, 2, r) for t in a[1:3])
+               + tuple(a[3:]), {k: slice_of(v, 2, r) for k, v in kw.items()},
+               r) for a, kw in cases for r in range(2)]
+
+    def calls():
+        parts = [paged_attn.paged_attention(*a, page_stride=16,
+                                            token_offset=8 * r, **kw)
+                 for a, kw, r in sliced]
+        return [paged_attn.merge_partials(
+            torch.cat([parts[i][0], parts[i + 1][0]], 2),
+            torch.cat([parts[i][1], parts[i + 1][1]], 2), sliced[i][0][0].dtype)
+            for i in range(0, len(parts), 2)]
+    calls()                           # build and load outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):    # the check is live
+            lens.max().item()
+        outs = calls()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for out in outs:
+        assert bool(out.float().isfinite().all())
+
+
+def test_slice_mode_rejects_slices_that_do_not_fit(dev):
+    args, kw = slice_case(dev, 1, 8, 64, 16, 2)
+    q, kp, vp, pt, lens = args
+    with pytest.raises(ValueError, match="does not fit pages"):
+        paged_attn.paged_attention(q, slice_of(kp, 2, 1), slice_of(vp, 2, 1),
+                                   pt, lens, page_stride=16, token_offset=9)
+    with pytest.raises(ValueError, match="does not fit pages"):
+        paged_attn.paged_attention(q, kp, vp, pt, lens, page_stride=8)
+    acc, ml = paged_attn.paged_attention(q, kp, vp, pt, lens, page_stride=16)
+    with pytest.raises(ValueError, match="partials per row"):
+        _cuda.launch_paged_attn_merge(acc[:, :, :0], ml[:, :, :0], q.dtype)
+
+
 def test_serve_steps_on_card_match_cpu(dev):
     """Prefill and decode on the card (probe, paged-attention and mutate
     kernels) against the same on the CPU (plain versions): logits within

@@ -222,3 +222,84 @@ def test_split_count_at_serving_sizes():
     assert _cuda.paged_attn_splits(4 * 4, 132, 132, 2) == 15
     assert _cuda.paged_attn_splits(32 * 4, 132, 132, 1) == 1
     assert _cuda.paged_attn_splits(4 * 4, 132, 132, 1) == 8
+
+
+def slice_pools(kp, vp, m, r):
+    """Rank ``r``'s slice of each page's tokens, of ``m`` slices."""
+    n = kp.shape[2] // m
+    return (kp[:, :, r * n:(r + 1) * n].contiguous(),
+            vp[:, :, r * n:(r + 1) * n].contiguous())
+
+
+def sliced(q, kp, vp, pt, lens, m):
+    """The plain slice mode over ``m`` slices of each page, every slice's
+    partials merged in slice order."""
+    PS = kp.shape[2]
+    parts = [tops.paged_attention(q, *slice_pools(kp, vp, m, r), pt, lens,
+                                  page_stride=PS,
+                                  token_offset=r * (PS // m))
+             for r in range(m)]
+    return tops.merge_partials(torch.cat([a for a, _ in parts], 2),
+                               torch.cat([b for _, b in parts], 2), q.dtype)
+
+
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+@pytest.mark.parametrize("m", [1, 2, 4])
+@pytest.mark.parametrize("B,H,KVH,D,PS,MAXP,lens", [
+    (7, 8, 2, 32, 16, 4, [1, 3, 16, 17, 21, 40, 64]),   # empty slices
+    (3, 4, 4, 16, 8, 5, None),                          # MHA (G=1)
+    (4, 16, 2, 64, 32, 3, [5, 33, 70, 96]),
+])
+def test_slices_merge_to_the_unsliced_plain_version(jdt, tdt, tol, m, B, H,
+                                                     KVH, D, PS, MAXP, lens):
+    """The plain slice mode plus the merge over m slices equals the
+    unsliced plain version (bit for bit at m = 1, within the dtype's
+    tolerance otherwise, float32 2e-5) and the JAX package's plain
+    version; short sequences leave whole slices with no live token."""
+    rng = np.random.RandomState(B * 10 + m)
+    (jq, jk, jv, jpt, jl), targs = both(
+        make_case(rng, B, H, KVH, D, PS, MAXP, lens=lens), jdt, tdt)
+    n0 = paged_attn.paged_attention.launches
+    got = sliced(*targs, m)
+    assert paged_attn.paged_attention.launches == n0   # CPU: plain version
+    assert got.dtype == tdt and got.shape == (B, H, D)
+    want = tops.paged_attention(*targs)
+    if m == 1:
+        assert torch.equal(got, want)
+    assert err(want.float().numpy(), got) < tol
+    assert err(jax_ref(jq, jk, jv, jpt, jl), got) < tol
+
+
+def test_an_empty_slice_gives_empty_partials_that_weigh_nothing():
+    """Sequences of 1 and 5 tokens in pages of 16 split 4 ways: slices 1-3
+    of the first, 2-3 of the second hold no live token: their partials are
+    (zeros, (-inf, 0)), and poison in their rows leaves the merge alone."""
+    rng = np.random.RandomState(5)
+    q, kp, vp, pt, lens = (torch.from_numpy(a) for a in make_case(
+        rng, 2, 4, 1, 16, 16, 2, lens=[1, 5]))
+    acc, ml = tops.paged_attention(q, *slice_pools(kp, vp, 4, 2), pt, lens,
+                                   page_stride=16, token_offset=8)
+    assert acc.shape == (2, 4, 1, 16) and ml.shape == (2, 4, 1, 2)
+    assert not acc.any() and (ml[..., 0] == float("-inf")).all()
+    assert not ml[..., 1].any()
+    base = sliced(q, kp, vp, pt, lens, 4)
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[:, :, 5:], vp2[:, :, 5:] = 1e3, -1e3      # rows past every length
+    assert torch.equal(sliced(q, kp2, vp2, pt, lens, 4), base)
+
+
+def test_slice_mode_on_meta_tensors_gives_shapes_only():
+    """The planning tools' dry run: meta tensors in, partials' and the
+    merge's shapes out, nothing launched."""
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    n0 = paged_attn.paged_attention.launches
+    acc, ml = tops.paged_attention(
+        meta(4, 8, 32), meta(6, 2, 8, 32), meta(6, 2, 8, 32),
+        meta(4, 3, dtype=torch.int32), meta(4, dtype=torch.int32),
+        page_stride=16, token_offset=8)
+    assert acc.device.type == "meta" and acc.shape == (4, 8, 1, 32)
+    assert ml.shape == (4, 8, 1, 2)
+    out = tops.merge_partials(acc, ml, torch.bfloat16)
+    assert out.shape == (4, 8, 32) and out.dtype == torch.bfloat16
+    assert paged_attn.paged_attention.launches == n0

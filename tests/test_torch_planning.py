@@ -5,11 +5,14 @@ every (arch x shape x 256 / 512 chips) cell.  ``launch.dryrun``'s HLO
 text parsers on the JAX package's synthetic line
 (``tests/test_distributed.py``) and on a small HLO text with a ``while``
 loop, equal to the reference's parsers.  One dry-run train cell
-(``yi-6b`` x ``train_4k`` on the (16, 16) fake mesh) and the KV service's
-read and write cells, in a subprocess (the fake 256-rank process group is
-global to its process): the reference's record layout, the XLA-only
-fields null and listed as absent, the KV routes' collectives as their
-shapes give them.  The hillclimb ladders equal the reference's.
+(``yi-6b`` x ``train_4k`` on the (16, 16) fake mesh), one paged serving
+cell (``yi-6b`` x ``decode_32k``: split-KV decode on rank 0's shard of the
+paged cache), the first rung of the hillclimb's ``qwen`` ladder and the
+KV service's read and write cells, in a subprocess (the fake 256-rank
+process group is global to its process): the reference's record layout,
+the XLA-only fields null and listed as absent, the KV routes' and the
+attention merge's collectives as their shapes give them.  The hillclimb
+ladders equal the reference's.
 
 The reference's ``launch.dryrun`` and ``launch.hillclimb`` set
 ``XLA_FLAGS`` when imported; it is put back at once, before any JAX
@@ -127,7 +130,11 @@ def records(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("dry"))
     code = ("import json, sys\n"
             "from repro_torch.launch import dryrun as D\n"
+            "from repro_torch.launch import hillclimb as H\n"
             f"D.main(['--arch', 'yi-6b', '--shape', 'train_4k', '--out', {out!r}])\n"
+            f"D.main(['--arch', 'yi-6b', '--shape', 'decode_32k', '--out', {out!r}])\n"
+            "arch, shape, over, tag = H.LADDERS['qwen'][0]\n"
+            f"D.run_cell(arch, shape, False, {out!r}, overrides=over, tag=tag)\n"
             "recs = {s: D.lower_kv_cell(s, False)[0] "
             "for s in ('kv_read', 'kv_write')}\n"
             "print(json.dumps(recs))\n")
@@ -135,11 +142,15 @@ def records(tmp_path_factory):
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, timeout=600)
     assert r.returncode == 0, r.stderr[-4000:]
-    files = os.listdir(out)
-    assert files == ["yi-6b_train_4k_16x16.json"]
-    with open(os.path.join(out, files[0])) as f:
-        cell = json.load(f)
-    return {"cell": cell, **json.loads(r.stdout.strip().splitlines()[-1])}
+    cells = {"cell": "yi-6b_train_4k_16x16.json",
+             "decode": "yi-6b_decode_32k_16x16.json",
+             "qwen": "qwen1.5-32b_decode_32k_16x16_hc0_merged.json"}
+    assert sorted(os.listdir(out)) == sorted(cells.values())
+    recs = {}
+    for key, name in cells.items():
+        with open(os.path.join(out, name)) as f:
+            recs[key] = json.load(f)
+    return {**recs, **json.loads(r.stdout.strip().splitlines()[-1])}
 
 
 def test_dryrun_train_cell_keeps_the_reference_layout(records):
@@ -180,3 +191,33 @@ def test_dryrun_kv_cells_count_their_routes(records):
     wr = records["kv_write"]["collectives"]
     assert wr["all-to-all"]["bytes"] == S * CAP * (3 + 8 + 1 + 1) * 4
     assert records["kv_read"]["memory"]["temp_bytes_per_device"] is None
+
+
+def test_dryrun_paged_decode_cell_merges_slices_over_the_model_axis(records):
+    """yi-6b x decode_32k on (16, 16): 16 data shards of 8 sequences, pages
+    of 512 tokens split 16 ways over the model axis.  Each layer's
+    attention partials cross the model group in one all-to-all by head
+    group: rank 0 sends its 8 sequences x 32 heads x 1 split (meta) x
+    (D 128 + (m, l)) float32 words."""
+    rec = records["decode"]
+    assert rec["status"] == "ok", rec.get("error")
+    assert set(rec) == set(records["cell"])
+    cfg = get_arch("yi-6b")
+    a2a = rec["collectives"]["all-to-all"]
+    assert a2a["count"] == cfg.n_layers
+    assert a2a["bytes"] == cfg.n_layers * 8 * cfg.n_heads * (cfg.hd + 2) * 4
+    assert rec["memory"]["argument_bytes_per_device"] > 0
+    am = A.model_cell(cfg, SHAPES["decode_32k"], 256, tp=16, kv_bytes=2)
+    assert rec["analytic"]["flops_total"] == am.flops_total
+
+
+def test_hillclimb_qwen_ladder_first_rung_runs(records):
+    """The ``qwen`` ladder's base rung (the merged path): an ``ok`` record
+    with its overrides; merging each page's token slices gathers them over
+    the model axis, so the step has no attention all-to-all."""
+    rec = records["qwen"]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["overrides"] == H.LADDERS["qwen"][0][2] == {
+        "paged_merged": True}
+    assert "all-to-all" not in rec["collectives"]
+    assert rec["collectives"]["all-gather"]["count"] > 0

@@ -17,8 +17,21 @@ unsharded ``ContinuityStore`` loaded with the acknowledged records.
 ``("data", "model")`` mesh against the same steps unsharded on rank 0's
 device: loss
 within 1e-3 and every leaf within atol 2e-4 / rtol 2e-3 (the JAX package's
-``tests/test_distributed.py`` tolerances).  Prints one JSON line of the
-timings and checks; exits non-zero if a check fails.
+``tests/test_distributed.py`` tolerances).  (c) Yi-6B's paged serving
+(``chip_smoke.py`` phase 5's bf16 weights at full width, 32 prompts of
+2,048 tokens, page size 16; ``--smoke``: the smoke twin with 2 kv heads, 4
+prompts of 32 tokens) on a (ranks / 2, 2) mesh: 2 data shards, each page's
+16 tokens split 8 / 8 over the model axis, attention through the kernel's
+slice mode and the partials' exchange; the same run unsharded on rank
+0's device.  Held: every rank's page tables and sequence fields equal
+the unsharded run's for its data shard, byte for byte; each layer's
+slice-mode attention of one bf16 step within ``chip_smoke``'s bf16 limit
+of the plain version on the same inputs; a float32 twin (4 sequences,
+256-token prompts, 7 steps fed the unsharded run's tokens) within atol
+1e-4 / rtol 1e-4 of the unsharded logits.  Recorded, not gated: ms per
+bf16 decode step against one card's, the greedy tokens' agreement.
+Prints one JSON line of the timings and checks; exits non-zero if a
+check fails.
 """
 
 import argparse
@@ -32,10 +45,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 PER_RANK = 65_536              # client batch per rank (write and read)
 LOSS_TOL, ATOL, RTOL = 1e-3, 2e-4, 2e-3
 STEPS = 2
+SERVE_TOL = 1e-4               # the float32 twin's logits, atol and rtol
+SERVE_GEN = 8                  # generated tokens: the prefill's + 7 steps
 
 
 def _sync(torch, dev):
@@ -201,6 +217,165 @@ def _train(torch, dist, rank, world, dev, smoke) -> dict:
     return out
 
 
+def _serve_cfg(smoke):
+    from repro_torch.configs import get_arch, smoke_config
+    if smoke:        # 2 kv heads, as _train's twin; bf16 as the served model
+        return dataclasses.replace(smoke_config("yi-6b"), n_kv_heads=2,
+                                   dtype="bfloat16")
+    return get_arch("yi-6b")
+
+
+def _table_state(cache) -> dict:
+    """A paged cache's page tables and sequence fields, host numpy."""
+    from repro_torch import convert
+    st = convert.cache_to_numpy(cache)
+    out = {f: st[f] for f in ("next_free", "seq_ids", "seq_lens", "cur_page",
+                              "cur_off")}
+    out.update({f"table.{k}": v for k, v in st["table"].items()})
+    return out
+
+
+def _slice_checks(K, errs):
+    """``ops.paged_attention`` wrapped so that every slice-mode call is also
+    run by the plain version on the same operands: each appends (max abs
+    difference of the slice's own merged output, its limit)."""
+    import chip_smoke
+    from repro_torch.kernels.paged_attn_ref import merge_partials_ref
+    kernel_call = K.paged_attention
+
+    def both(*a, **kw):
+        out = kernel_call(*a, **kw)
+        if kw.get("page_stride") is not None:
+            want = merge_partials_ref(*kernel_call(*a, use_kernel=False,
+                                                   **kw), a[0].dtype).float()
+            got = K.merge_partials(*out, a[0].dtype).float()
+            errs.append((float((got - want).abs().max()),
+                         chip_smoke._attn_limit(want)))
+        return out
+    return kernel_call, both
+
+
+def _serve(torch, dist, rank, world, dev, smoke) -> dict:
+    import chip_smoke
+    import numpy as np
+    from repro_torch.distribution import sharding as SH
+    from repro_torch.kernels import ops as K
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import kvcache as KC
+    cfg = _serve_cfg(smoke)
+    B, P = (4, 32) if smoke else (chip_smoke.SERVE_B, chip_smoke.PROMPT_LEN)
+    PS, DS = chip_smoke.PAGE_SIZE, world // 2
+    params = T.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    chip_smoke._scale_residuals(cfg, params)
+    for t in [*params["blocks"].values()] + [v for k, v in params.items()
+                                              if k != "blocks"]:
+        dist.broadcast(t, src=0)      # rank 0's draw on every rank
+    prompts = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (B, P)).astype(np.int32)).to(dev)
+    mesh = make_debug_mesh((DS, 2), ("data", "model"), device_type=dev.type)
+
+    def geometry(c, b, p):
+        return serve.make_geometry(c, b, p, SERVE_GEN, page_size=PS,
+                                   shards=DS, device=str(dev))
+    out = {"serve_mesh": [DS, 2], "serve_batch": B, "prompt": P}
+    # bf16: the launcher's prefill and greedy decode, unsharded on rank 0
+    geom = geometry(cfg, B, P)
+    ref = {}
+    if rank == 0:
+        with chip_smoke._StepLog(torch, timed=dev.type == "cuda") as log:
+            lg, cache = serve.run_prefill(cfg, geom, params, prompts,
+                                          KC.create_cache(geom))
+            toks, _, cache = serve.run_decode(cfg, geom, params, lg, cache,
+                                              SERVE_GEN)
+        ref = {"toks": toks.cpu(), "state": _table_state(cache),
+               "step_ms": [t * 1e3 for t in log.times]}
+        del cache
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    errs = []
+    with SH.use_mesh(mesh):
+        p = SH.distribute(params, T.param_logical_axes(cfg, params))
+        lgeom, cache = KC.shard_cache(geom, KC.create_cache(geom))
+        with chip_smoke._StepLog(torch, timed=dev.type == "cuda") as log:
+            lg, cache = serve.run_prefill(cfg, lgeom, p, prompts, cache)
+            toks, lg, cache = serve.run_decode(cfg, lgeom, p, lg, cache,
+                                               SERVE_GEN - 1)
+        kernel_call, K.paged_attention = _slice_checks(K, errs)
+        try:             # one more step, every slice-mode call checked
+            _, cache = E.serve_step(cfg, lgeom, p,
+                                    lg.argmax(-1).to(torch.int32), cache)
+        finally:
+            K.paged_attention = kernel_call
+        mine = _table_state(cache)
+        slice_of = [lgeom.page_slice, lgeom.page_slices, lgeom.token_offset]
+    del cache, p
+    states = [None] * world
+    dist.all_gather_object(states, (rank, mine, slice_of))
+    out.update(step_ms=[t * 1e3 for t in log.times])
+    if rank == 0:
+        bad = []
+        for r, st, sl in states:
+            ds = r // 2
+            for k, v in st.items():
+                if not np.array_equal(v, ref["state"][k][ds:ds + 1]):
+                    bad.append(f"rank {r} {k}")
+        out.update(unsharded_step_ms=ref["step_ms"], table_mismatches=bad,
+                   slices=[sl for _, _, sl in states],
+                   greedy_agreement=float(
+                       (toks.cpu()[:, :SERVE_GEN - 1]
+                        == ref["toks"][:, :SERVE_GEN - 1]).float().mean()))
+    out["attention_worst"] = max(errs, key=lambda el: el[0] / el[1])
+    out["attention_checked"] = len(errs)
+    out["attention_ok"] = all(e <= lim for e, lim in errs)
+    # the float32 twin at phase 5's float32-twin shape, fed the unsharded
+    # run's tokens
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = {k: v.float() for k, v in params.items() if k != "blocks"}
+    p32["blocks"] = {k: v.float() for k, v in params["blocks"].items()}
+    del params
+    B32, P32 = (4, 32) if smoke else (chip_smoke.CHECK_SEQS, 256)
+    g32 = geometry(cfg32, B32, P32)
+    feed = torch.zeros((B32, SERVE_GEN - 1), dtype=torch.int32, device=dev)
+    want = []
+    if rank == 0:
+        lg, c = serve.run_prefill(cfg32, g32, p32, prompts[:B32, :P32],
+                                  KC.create_cache(g32))
+        toks, _, c = serve.run_decode(cfg32, g32, p32, lg, c, SERVE_GEN)
+        feed.copy_(toks[:, :SERVE_GEN - 1])
+        del c
+    dist.broadcast(feed, src=0)
+    if rank == 0:                     # the same steps, logits kept
+        lg, c = E.prefill(cfg32, g32, p32, prompts[:B32, :P32],
+                          KC.create_cache(g32))
+        want.append(lg)
+        for i in range(SERVE_GEN - 1):
+            lg, c = E.serve_step(cfg32, g32, p32, feed[:, i], c)
+            want.append(lg)
+        del c
+    got = []
+    with SH.use_mesh(mesh):
+        p = SH.distribute(p32, T.param_logical_axes(cfg32, p32))
+        lgeom, c = KC.shard_cache(g32, KC.create_cache(g32))
+        lg, c = E.prefill(cfg32, lgeom, p, prompts[:B32, :P32], c)
+        got.append(lg)
+        for i in range(SERVE_GEN - 1):
+            lg, c = E.serve_step(cfg32, lgeom, p, feed[:, i], c)
+            got.append(lg)
+        del c, p
+    if rank == 0:
+        out["f32_excess"] = max(float(((a - b).abs() - SERVE_TOL
+                                       - SERVE_TOL * b.abs()).max())
+                                for a, b in zip(got, want))
+        out["f32_max_abs"] = max(float((a - b).abs().max())
+                                 for a, b in zip(got, want))
+    dist.barrier()
+    return out
+
+
 def _rank(rank, world, port, args, queue):
     import torch
     import torch.distributed as dist
@@ -217,6 +392,9 @@ def _rank(rank, world, port, args, queue):
     try:
         out = _store(torch, dist, rank, world, dev, args.buckets)
         out.update(_train(torch, dist, rank, world, dev, args.smoke))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out.update(_serve(torch, dist, rank, world, dev, args.smoke))
         if rank == 0:
             queue.put(("ok", out))
     except BaseException:
@@ -272,6 +450,8 @@ def main(argv=None) -> int:
           and all(abs(a - b) < LOSS_TOL for a, b in
                   zip(out["losses"], out["unsharded_losses"]))
           and out["worst_leaf_excess"] <= ATOL
+          and not out["table_mismatches"] and out["attention_ok"]
+          and out["f32_excess"] <= 0
           and all(p.exitcode == 0 for p in procs))
     return 0 if ok else 1
 

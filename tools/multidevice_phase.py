@@ -2,15 +2,19 @@
 
     python3 tools/multidevice_phase.py
 
-Builds the kernels, then runs ``chip_smoke.multidevice_phase``: a world-1
-NCCL group in this process, the sharded continuity store at the
-reference's service size (2^22 buckets, load factor 0.6 through
-``make_write``, every key read back, the unsharded store's found set
-and values equal, the routed walk's mixed batch against its plain
-version on a host copy) and Yi-6B's 8-layer cut trained 2 steps on a
-(1, 1) mesh against the same steps unsharded.  Prints the phase's
-lines, then one JSON line of the routed walk's record, the phase's
-kernel launches and its seconds.
+Builds the kernels, makes what phase 5 records for (c) (Yi-6B served
+unsharded at full width: the prefill and 2 greedy steps,
+``chip_smoke.dist_serve_record``), then runs
+``chip_smoke.multidevice_phase``: a world-1 NCCL group in this process,
+(a) the sharded continuity store at the reference's service size (2^22
+buckets, load factor 0.6 through ``make_write``, every key read back,
+the unsharded store's found set and values equal, the routed walk's
+mixed batch against its plain version on a host copy), (b) Yi-6B's
+8-layer cut trained 2 steps on a (1, 1) mesh against the same steps
+unsharded, (c) Yi-6B's paged serving on a (1, 1) mesh (the slice mode of
+the attention kernel) equal to the unsharded run bit for bit.  Prints
+the phase's lines, then one JSON line of the routed walk's record, the
+phase's kernel launches and its seconds.
 """
 
 import json
@@ -36,9 +40,10 @@ def main() -> int:
     card = chip_smoke._smi()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
-    _cuda.build_all(("scan_walk.cu",))
+    _cuda.build_all()
+    record = chip_smoke.dist_serve_record(torch)
     t0 = time.perf_counter()
-    routed, launches = chip_smoke.multidevice_phase(torch, card)
+    routed, launches = chip_smoke.multidevice_phase(torch, card, record)
     print(json.dumps({"routed": routed, "dist_launches": launches,
                       "seconds": time.perf_counter() - t0}))
     return 0
