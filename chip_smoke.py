@@ -7,7 +7,8 @@ Phases, in order:
 
 1. Header: the card's name and power limit, torch and CUDA versions, and
    the build of the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, started together).
+   ``nvcc`` per source, started together, with the attention kernel's
+   stamped build for phase 4's breakdown beside them).
 2. Store kernels vs plain: a table of the paper's geometry at full size
    (2**23 buckets: 16 B keys and values, 4-slot buckets, 3 SBuckets, 10 %
    extension pool, no stash) loaded with 50,331,648 YCSB records (load
@@ -77,9 +78,10 @@ Phases, in order:
    their stash: every payload on the card equals the CPU's, field for
    field; (b) the full-size cluster: continuity nodes ``pm0``-``pm3`` of
    the store's defaults (1/8 stash) sized by the reference's formula
-   (75,497,728 slots each), R 2, 50,331,648 YCSB records, 262,144 YCSB-A
-   ops (zipf 0.99) in batches of 65,536, join ``pmJ`` at a third of the
-   ops and kill ``primary`` at two thirds: zero committed loss, the join
+   (75,497,728 slots each), R 2, 50,331,648 YCSB records, 196,608 YCSB-A
+   ops (zipf 0.99, 3 rounds, cut from 4 for the smoke's time limit) in
+   batches of 65,536, join ``pmJ`` after the first round and kill
+   ``primary`` after the second: zero committed loss, the join
    within 1/N + 5 %, the kill detected and promoted log-free; load,
    round, join, failover and audit seconds, the ``LinkModel``'s simulated
    ops/s and latencies, peak device memory.  (b) runs in a process of its
@@ -120,9 +122,14 @@ Phases, in order:
    each page's 16 tokens cut into m = 2 and 4 slices on one card, m slice
    launches and the merge over every slice's partials, for the bf16 and
    int8 routes held within the bf16 limit of the whole-page kernel and of
-   the plain version and timed (one slice's launch, and the m launches
-   with the merge) beside their bounds; with one slice bit-equal to the
-   whole-page launch; the float32 route within 2e-5 at m = 2.
+   the plain version and timed (one slice's launch, the m launches with
+   the merge, and the merge alone) beside their bounds, and SDPA over one
+   slice's dense tokens (bf16); with one slice bit-equal to the
+   whole-page launch; the int8 route's partials at m = 2 and 4 equal to
+   the bf16 route's on the dequantized pools bit for bit; the float32
+   route within 2e-5 at m = 2.  Then ``tools/attention_breakdown.py``'s
+   breakdown of one slice's launch by phase (the stamped build), its
+   headline printed.
 5. Serving Yi-6B at full width (32 layers, d 4096, 32/4 heads, vocab
    64,000; bf16 weights from a seeded generator, residual output
    projections scaled by 1/sqrt(2L)) through the port's ``launch/serve``
@@ -208,12 +215,13 @@ Phases, in order:
    before each part: a one-rank NCCL group in this process (torn down at
    the end).  (a) The sharded continuity store (``core.distributed``) at
    the reference's service size (``dryrun.lower_kv_cell``: 2^22 buckets,
-   ext-free, ~1.38 GB): 20,132,659 seeded records (load factor 0.6 of
-   its 33,554,432 segment slots) written through ``make_write`` in
-   batches of 65,536 (the routed walk, ``scan_walk.routed_write``), the
-   acknowledged count recorded; every record and 65,536 absent keys read
-   back through ``make_lookup``: found set and values equal to the
-   acknowledged records and to an unsharded ``ContinuityStore`` of the
+   ext-free, ~1.38 GB): 10,066,329 seeded records (load factor 0.3 of
+   its 33,554,432 segment slots, cut from 0.6 for the smoke's time limit)
+   written through ``make_write`` in batches of 65,536 (the routed walk,
+   ``scan_walk.routed_write``), the acknowledged count recorded; every
+   record and 65,536 absent keys read back through ``make_lookup``:
+   found set and values equal to the acknowledged records and to an
+   unsharded ``ContinuityStore`` of the
    same geometry loaded with them; 256 client batches of 4,096 timed; one
    mixed batch of 4,096 (updates, deletes, fresh and present inserts, 64
    keys taking eight ops each) through the walk on a clone, its status
@@ -240,8 +248,10 @@ Phases, in order:
    ``dist_launches``, and the walk's routed mode timed there as the walk
    row's ``routed``; the slice mode as its own row,
    ``paged_attention_slice``, with its launches (and the merge's) on the
-   multi-device serving path, phase 7b (c), and its times by route and
-   slice count under ``slices``; attention's times at the moe path's decode
+   multi-device serving path, phase 7b (c), its times by route and slice
+   count under ``slices`` (with the merge alone and SDPA over one slice's
+   tokens) and phase 4's breakdown of one slice's launch under
+   ``breakdown``; attention's times at the moe path's decode
    shape as ``moe_shape``; the int8 mode as its own row,
    ``int8_attention``, with its launches on the int8 path of phase 5b,
    and the merged path's attention launches as ``merged_launches``; the
@@ -1818,7 +1828,7 @@ def sim_batcher_check(torch, card) -> None:
 # ---------------------------------------------------------------------------
 
 CLUSTER_RECORDS = 50_331_648   # the paper's record count (§V-A)
-CLUSTER_OPS = 262_144          # 4 rounds of YCSB-A
+CLUSTER_OPS = 196_608          # 3 rounds of YCSB-A (cut from 4)
 CLUSTER_BATCH = 65_536
 SPILL_NODE_SLOTS = 280         # (a)'s stash cell: nodes this small spill
 
@@ -2427,17 +2437,52 @@ def _run_slices(torch, sl, attend, merge):
 
 
 def _slice_bytes(mode, B, H, KVH, D, MAXP, last, m, splits) -> tuple:
-    """(bytes of one slice's launch, bytes of m launches and their merge):
-    each slice's share of the live K/V rows (with their scales in int8),
-    q, the page table and lengths per launch, the partials (acc and m, l
-    per split) written once and read once by the merge, the output."""
+    """(bytes of one slice's launch, bytes of m launches and their merge,
+    bytes of the merge alone): each slice's share of the live K/V rows
+    (with their scales in int8), q, the page table and lengths per launch,
+    the partials (acc and m, l per split) written once and read once by
+    the merge, the output."""
     kv = B * last * KVH * (2 * D * ATTN_ITEM[mode]
                            + (2 * 4 if mode == "int8" else 0))
     item = 4 if mode == "float32" else 2
     fixed = B * H * D * item + B * MAXP * 4 + B * 4
     partials = B * H * splits * (D + 2) * 4
     one = kv / m + fixed + partials
-    return one, m * one + m * partials + B * H * D * item
+    merge = m * partials + B * H * D * item
+    return one, m * one + merge, merge
+
+
+def _slice_rows(lens, PS, off, rows) -> "object":
+    """The live rows of each sequence in the slice of ``rows`` rows from
+    token ``off`` of each page of ``PS`` tokens (the kernel's
+    ``slice_len``, unclipped)."""
+    full = lens // PS
+    return full * rows + (lens - full * PS - off).clamp(0, rows)
+
+
+def _int8_equals_bf16(torch, a, kw, m) -> None:
+    """The int8 slice route's partials against the bf16 slice route's on
+    the plain version's dequantized pools, every slice of ``m``, at the
+    int8 route's host split count: bit for bit."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.paged_attn_ref import dequant
+    q, kq, vq, pt, lens = a
+    deq = {"k": dequant(kq, kw["kscale"], torch.bfloat16),
+           "v": dequant(vq, kw["vscale"], torch.bfloat16)}
+    scale = 1.0 / q.shape[-1] ** 0.5
+    PS = kq.shape[2]
+    for (sa, skw, off), (da, _, _) in zip(
+            _slices(torch, a, kw, m),
+            _slices(torch, (q, deq["k"], deq["v"], pt, lens), {}, m)):
+        got = _cuda.launch_paged_attn_slice(*sa, scale, PS, off, **skw)
+        want = _cuda.launch_paged_attn_slice(*da, scale, PS, off,
+                                             splits=got[0].shape[2])
+        live = got[1][..., 0] != float("-inf")   # an empty split writes no acc
+        _check(torch.equal(got[1], want[1])
+               and torch.equal(got[0][live], want[0][live]),
+               f"int8, {m} slices: slice {off // (PS // m)}'s partials equal "
+               f"the bf16 slice route's on the dequantized pools bit for "
+               f"bit")
 
 
 def slice_timing(torch, card) -> dict:
@@ -2447,9 +2492,13 @@ def slice_timing(torch, card) -> dict:
     partials.  For the bf16 and int8 routes at m = 2 and 4: held within
     ``_attn_limit`` of the whole-page kernel and of the plain version,
     bit-equal to the whole-page launch at m = 1, and timed (one slice's
-    launch, and the m launches with the merge) beside their bounds; the
-    float32 route held within 2e-5 of its plain version at m = 2.
-    Returns the report row (bf16 at m = 2, launches filled later)."""
+    launch, the m launches with the merge, and the merge alone) beside
+    their bounds, with SDPA over one slice's dense tokens (bf16); the int8
+    route's partials equal to the bf16 route's on the dequantized pools
+    bit for bit at m = 2 and 4; the float32 route held within 2e-5 of its
+    plain version at m = 2; then the breakdown of one slice's launch by
+    phase (``tools/attention_breakdown.py``).  Returns the report row
+    (bf16 at m = 2, launches filled later)."""
     from repro_torch.kernels import _cuda, paged_attn
     from repro_torch.kernels.paged_attn_ref import (merge_partials_ref,
                                                     paged_attention_ref)
@@ -2482,6 +2531,8 @@ def slice_timing(torch, card) -> dict:
             _cuda.resident_blocks(0, code, D, H // KVH))
         for m in SLICES:
             sliced = [_slices(torch, b, k, m) for b, k in batches]
+            if kw:
+                _int8_equals_bf16(torch, a, kw, m)
             got = _run_slices(torch, sliced[0], kern, merge)
             e_whole = float((got.float() - whole.float()).abs().max())
             e_plain = float((got.float() - want).abs().max())
@@ -2501,24 +2552,46 @@ def slice_timing(torch, card) -> dict:
                     torch, sl, lambda *x, **y: paged_attention_ref(
                         *x, partials=True, **y), merge_partials_ref),
                 sliced, 10, PLAIN_SLEEP)
-            one_b, all_b = _slice_bytes(mode, B, H, KVH, D, MAXP, last, m,
-                                        splits)
+            parts = [[kern(*x, page_stride=PS, token_offset=off, **y)
+                      for x, y, off in sl] for sl in sliced]
+            cat = [(torch.cat([p[0] for p in ps], 2),
+                    torch.cat([p[1] for p in ps], 2)) for ps in parts]
+            merge_ms = _device_ms(torch, lambda c: merge(*c, torch.bfloat16),
+                                  cat, 30, KERNEL_SLEEP)
+            splits = cat[0][0].shape[2] // m
+            one_b, all_b, merge_b = _slice_bytes(mode, B, H, KVH, D, MAXP,
+                                                 last, m, splits)
             rec = {"ms": ms, "slice_ms": one_ms, "plain_ms": plain_ms,
+                   "merge_ms": merge_ms,
                    "bound_ms": all_b / HBM_BYTES_PER_S * 1e3,
                    "slice_bound_ms": one_b / HBM_BYTES_PER_S * 1e3,
+                   "merge_bound_ms": merge_b / HBM_BYTES_PER_S * 1e3,
                    "max_abs_err": e_plain, "splits": splits}
+            lib_note = ""
+            if not kw:               # SDPA over one slice's dense tokens
+                q0, kp0, vp0, pt0, lens0 = sliced[0][0][0]
+                n = _slice_rows(lens0, PS, 0, PS // m)
+                rec["slice_library_ms"] = _device_ms(
+                    torch, lambda d: sdpa(*d, enable_gqa=True),
+                    [_dense((x[0][0][0], x[0][0][1], x[0][0][2], x[0][0][3],
+                             n)) for x in sliced], 50, KERNEL_SLEEP)
+                lib_note = (f"; SDPA over one slice's {int(n[0])} dense "
+                            f"tokens {rec['slice_library_ms'] * 1e3:.2f} us")
             out[f"{mode}_m{m}"] = rec
             print(f"{mode} paged_attention slice mode, {m} slices of each "
                   f"page at B={B} H={H} KVH={KVH} D={D} PS={PS} len={last}: "
                   f"one slice's launch {one_ms * 1e3:.2f} us (bound "
-                  f"{rec['slice_bound_ms'] * 1e3:.2f} us), {m} launches and "
-                  f"the merge {ms * 1e3:.2f} us (bound "
+                  f"{rec['slice_bound_ms'] * 1e3:.2f} us{lib_note}), {m} "
+                  f"launches and the merge {ms * 1e3:.2f} us (bound "
                   f"{rec['bound_ms'] * 1e3:.2f} us; plain version "
-                  f"{plain_ms * 1e3:.2f} us); {splits} splits per slice; "
-                  f"max_abs_err vs the whole-page kernel {e_whole:.3g}, vs "
-                  f"the plain version {e_plain:.3g}, limit {limit:.3g} "
-                  f"[{card}]", flush=True)
-            del sliced
+                  f"{plain_ms * 1e3:.2f} us), the merge alone "
+                  f"{merge_ms * 1e3:.2f} us over {m} x {splits} partials "
+                  f"(bound {rec['merge_bound_ms'] * 1e3:.2f} us); {splits} "
+                  f"splits per slice; max_abs_err vs the whole-page kernel "
+                  f"{e_whole:.3g}, vs the plain version {e_plain:.3g}, "
+                  f"limit {limit:.3g}{'; partials equal the bf16 route' if kw else ''}"
+                  f" [{card}]", flush=True)
+            del sliced, parts, cat
     f32 = _attn_case(torch, 70, B, H, KVH, D, PS, MAXP, NP=B * MAXP,
                      lens=[last] * B, dtype=torch.float32, q_scale=4.0)
     got = _run_slices(torch, _slices(torch, f32, {}, 2), kern, merge)
@@ -2531,6 +2604,12 @@ def slice_timing(torch, card) -> dict:
           flush=True)
     del bf16, routes, f32, got
     torch.cuda.empty_cache()
+    sys.path.insert(0, str(ROOT / "tools"))
+    import attention_breakdown
+    breakdown = attention_breakdown.run(torch, sys.modules[__name__],
+                                        iters=20)
+    for line in attention_breakdown.headline(breakdown):
+        print(f"{line} [{card}]", flush=True)
     r = out["bf16_m2"]
     return {"name": "paged_attention_slice", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
@@ -2538,7 +2617,7 @@ def slice_timing(torch, card) -> dict:
             "max_abs_err": max(worst, e32), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": lib_ms, "slices": out,
-            "float32_max_abs_err": e32}
+            "float32_max_abs_err": e32, "breakdown": breakdown}
 
 
 # ---------------------------------------------------------------------------
@@ -3969,7 +4048,7 @@ def training_phase(torch, card, twins) -> dict:
 
 # the reference's service table (src/repro/launch/dryrun.py:415-420)
 DIST_BUCKETS = 2 ** 22          # 2,097,152 pairs, 33,554,432 segment slots
-DIST_RECORDS = int(0.6 * DIST_BUCKETS * 8)   # load factor 0.6 of those slots
+DIST_RECORDS = int(0.3 * DIST_BUCKETS * 8)   # load factor 0.3 (cut from 0.6)
 DIST_BATCH = 65_536             # write and read-back batch
 DIST_CLIENT_B = 4_096           # the reference's batch per client
 DIST_CLIENT_BATCHES = 256
@@ -4394,11 +4473,14 @@ def _smoke(torch, twins) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- phase 1: header and build ---------------------------------------
+    t_smoke = time.perf_counter()
     card = _smi()
-    _, t_build = _timed(torch, _cuda.build_all)
+    _, t_build = _timed(torch, lambda: _cuda.build_all(
+        variants=(_cuda.ATTN_STAMPS,)))
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; kernel build {t_build:.2f} s "
-          f"({len(_cuda.SOURCES)} sources in parallel)", flush=True)
+          f"({len(_cuda.SOURCES)} sources and the attention kernel's "
+          f"stamped build in parallel)", flush=True)
     for source in _cuda.SOURCES:
         for line in _cuda.build_log.get(source, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -4490,10 +4572,14 @@ def _smoke(torch, twins) -> int:
                 "latency_floor_ms": floor["tok_warm_us"] * WALK_B / 1e3}
 
     # -- phase 4: paged attention against its plain version --------------
+    t0 = time.perf_counter()
     attn_row, f32_row = attention_phase(torch, card)
     rows.append(attn_row)
+    t1 = time.perf_counter()
     slice_row = slice_timing(torch, card)
     torch.cuda.empty_cache()
+    print(f"attention phase: {time.perf_counter() - t0:.1f} s (the slice "
+          f"mode {time.perf_counter() - t1:.1f} s)", flush=True)
 
     # -- phase 5: serving Yi-6B, its launches counted ---------------------
     t0 = time.perf_counter()
@@ -4574,6 +4660,8 @@ def _smoke(torch, twins) -> int:
     _check(all(n > 0 for n in F32_TWIN_LAUNCHES.values())
            and len(F32_TWIN_LAUNCHES) == 3, f"every float32 twin launched "
            f"the float32-q loop ({F32_TWIN_LAUNCHES})")
+    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s from the build on "
+          f"[{card}]", flush=True)
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

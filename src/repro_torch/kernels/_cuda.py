@@ -5,7 +5,10 @@ a plain C interface, loaded with ``ctypes``.  The build happens at first
 use, into ``_build/`` beside this file, and is keyed by a hash of the
 source and the flags, so an edited source rebuilds and an unchanged one
 loads the library already built; ``build_all`` runs one ``nvcc`` per
-source in parallel.  Nothing is built or loaded at import.
+source in parallel.  A variant of a source built with extra ``-D``
+definitions (``tools/attention_breakdown.py``'s stamped attention kernel)
+goes into a directory of its own under ``_build/``; the libraries the port
+loads are built without any.  Nothing is built or loaded at import.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 SOURCES = ("segment_probe.cu", "paged_attn.cu", "scan_walk.cu")
+# the attention kernel with its phase stamps (tools/attention_breakdown.py)
+ATTN_STAMPS = ("paged_attn.cu", ("PAGED_ATTN_STAMPS",))
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -44,38 +49,44 @@ def nvcc_path() -> str:
                        "CUDA toolkit on the machine with the card")
 
 
-def _target(source: str) -> Path:
+def _target(source: str, defines=()) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    flags = " ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
+    digest = hashlib.sha256(src.read_bytes() + flags.encode()).hexdigest()[:16]
+    where = BUILD_DIR / "_".join(("variant",) + tuple(defines)) if defines \
+        else BUILD_DIR
+    return where / f"{src.stem}-{digest}.so"
 
 
-def build_all(sources=SOURCES) -> dict:
-    """Compile every source not built yet, one ``nvcc`` each, all started
-    together; returns ``{source: library path}``.  Raises if any fails."""
+def build_all(sources=SOURCES, variants=()) -> dict:
+    """Compile every source not built yet, and every ``(source, defines)``
+    variant of ``variants``, one ``nvcc`` each, all started together;
+    returns ``{source or variant: library path}``.  Raises if any fails."""
     started = {}
-    for source in sources:
-        out = _target(source)
+    for job in tuple(sources) + tuple(variants):
+        source, defines = (job, ()) if isinstance(job, str) else job
+        out = _target(source, defines)
         if out.is_file():
             continue
-        BUILD_DIR.mkdir(exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-        started[source] = (out, tmp, subprocess.Popen(
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(tmp), str(CSRC / source)]
+        started[job] = (out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
-    for source, (out, tmp, proc) in started.items():
+    for job, (out, tmp, proc) in started.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            failed.append(f"nvcc failed on {source} "
+            failed.append(f"nvcc failed on {job} "
                           f"({proc.returncode}):\n{log}")
             continue
-        build_log[source] = log
+        build_log[job] = log
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {source: _target(source) for source in sources}
+    return {job: _target(*((job,) if isinstance(job, str) else job))
+            for job in tuple(sources) + tuple(variants)}
 
 
 def build(source: str) -> Path:
@@ -281,15 +292,18 @@ def sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def resident_blocks(index: int, dtype: int, D: int, G: int = 8) -> int:
+def resident_blocks(index: int, dtype: int, D: int, G: int = 8,
+                    sliced: bool = False) -> int:
     """Split-kernel blocks that one SM of CUDA device ``index`` holds at
     once for operands of ``dtype`` (a ``PAGED_ATTN_DTYPES`` or
     ``PAGED_ATTN_INT8`` code), head dim ``D`` and ``G`` query heads per kv
-    head (the float32-q kernel's instantiation depends on it): the
-    runtime's occupancy of the instantiation the launch picks, with its
-    registers and shared memory (asked once per process; a host call, no
-    device sync)."""
-    fn = paged_attn_lib().paged_attn_resident_blocks
+    head (the float32-q kernel's instantiation depends on it), over whole
+    pages or (``sliced``) a slice of each page: the runtime's occupancy of
+    the instantiation the launch picks, with its registers and shared
+    memory (asked once per process; a host call, no device sync)."""
+    lib = paged_attn_lib()
+    fn = (lib.paged_attn_slice_resident_blocks if sliced
+          else lib.paged_attn_resident_blocks)
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
@@ -302,10 +316,11 @@ def resident_blocks(index: int, dtype: int, D: int, G: int = 8) -> int:
 
 
 def _attn_operands(q, kpool, vpool, page_table, seq_lens, splits, kscale,
-                   vscale) -> tuple:
+                   vscale, sliced=False) -> tuple:
     """Check the paged-attention operands; returns (B, H, KVH, D, NP, PS,
-    MAXP, dtype code, splits: the host's choice when 0).  Raises on any
-    operand the kernels do not take."""
+    MAXP, dtype code, splits: the host's choice when 0, for the slice
+    mode's instantiation when ``sliced``).  Raises on any operand the
+    kernels do not take."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -357,7 +372,7 @@ def _attn_operands(q, kpool, vpool, page_table, seq_lens, splits, kscale,
     if not splits and B:
         splits = paged_attn_splits(B * KVH, MAXP, sm_count(dev.index),
                                    resident_blocks(dev.index, code, D,
-                                                   H // KVH))
+                                                   H // KVH, sliced))
     return B, H, KVH, D, NP, PS, MAXP, code, splits
 
 
@@ -418,7 +433,8 @@ def launch_paged_attn_slice(q, kpool, vpool, page_table, seq_lens,
     the device; raises on any operand it does not take or a failed
     launch."""
     B, H, KVH, D, NP, PS, MAXP, code, splits = _attn_operands(
-        q, kpool, vpool, page_table, seq_lens, splits, kscale, vscale)
+        q, kpool, vpool, page_table, seq_lens, splits, kscale, vscale,
+        sliced=kpool.dim() == 4 and kpool.shape[2] < page_stride)
     if not (PS <= page_stride and 0 <= token_offset <= page_stride - PS):
         raise ValueError(f"a slice of {PS} rows from token {token_offset} "
                          f"does not fit pages of {page_stride} tokens")

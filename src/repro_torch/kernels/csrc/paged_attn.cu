@@ -93,11 +93,31 @@
 // - Page-token slices (split-KV decode over a mesh whose model axis splits
 //   each page's tokens, every route): the pools hold PS of each page's PSg
 //   tokens, from token `off` on.  The slice's live rows are a prefix of its
-//   local token order (slice_len), so the split kernels run unchanged on
-//   that prefix; the call returns the splits' partials instead of merging
-//   them, and the merge kernel later sums the partials of every slice, in
-//   slice order, as it sums splits.  With one slice (PSg = PS, off = 0)
-//   the partials and their merge are the whole-page launch's, bit for bit.
+//   local token order (slice_len), so the split kernels run on that prefix;
+//   the call returns the splits' partials instead of merging them, and the
+//   merge kernel later sums the partials of every slice, in slice order,
+//   as it sums splits.  With one slice (PSg = PS, off = 0) the launch is
+//   the whole-page instantiation's: its partials and their merge are the
+//   whole-page launch's, bit for bit.  A real slice (PSg > PS) of the
+//   tensor-core routes runs an instantiation of its own (kSlice), shaped
+//   by what a slice launch pays for (tools/attention_breakdown.py's
+//   per-block stamps): its few tiles stream at the card's rate, so what it
+//   pays beyond its bytes is the first tile's latency, the warps' merge,
+//   and blocks and warps waiting for the slowest.  So: a 2-tile ring with
+//   three blocks per SM in bf16 too (one wave holds three splits: fewer
+//   tiles per warp); int8 tiles of whole slice pages (4 or 8 rows a page)
+//   staged as runs, each page's K rows, V rows and scales one bulk copy
+//   each, as the whole-page int8 tiles are.  The host's split count
+//   fills one wave of this instantiation's blocks.  The arithmetic is the
+//   whole-page kernel's, tile for tile, so the int8 slice route equals the
+//   bf16 slice route on the dequantized pools bit for bit at a given split
+//   count.
+// - The warps' merge, every instantiation: the accumulators' live rows go
+//   to shared memory without bank conflicts, each row's weights are taken
+//   once by one thread, and the block then sums the warps' rows in warp
+//   order: the arithmetic of the former pass per element (bit-identical
+//   outputs), without its division, exponentials and branches per element
+//   (1.5-2 us less per launch at Yi-6B's shape).
 
 #include <cmath>
 #include <cstdint>
@@ -168,20 +188,35 @@ __host__ __device__ constexpr int padded_d(int D) { return (D + 15) & ~15; }
 // int8 route is bound by each warp's widening and tensor-core work per
 // tile, not by the bytes in flight
 constexpr int kStages8 = 2;
-__host__ __device__ constexpr int ring_stages(bool quant) {
-  return quant ? kStages8 : kStages;
+// bf16 over a slice of each page: two tiles per warp too, and three blocks
+// per SM.  A slice launch streams its few tiles at the card's rate either
+// way; the third block gives the host's one wave three splits, so each
+// warp walks fewer tiles and the blocks' tail is shorter (Yi-6B's B 32
+// shape, 4 slices: 24.5 against 26.3 us with three stages; PERF.md).
+// Whole pages keep three stages and two blocks: on this ring they ran
+// 65.8 against 64.6 us at Yi-6B's B 32 shape (tools/attention_modes.py),
+// and a third block would change their split count and so their output
+constexpr int kSliceStages = 2;
+__host__ __device__ constexpr int ring_stages(bool quant, bool slice) {
+  return quant ? kStages8 : slice ? kSliceStages : kStages;
+}
+// blocks per SM the launch bounds ask for: 3 where the ring is 2 deep
+__host__ __device__ constexpr int min_blocks(int kNt, bool quant, bool slice) {
+  return ring_stages(quant, slice) == 2 && kNt <= 16 ? 3 : 1;
 }
 
 // [mbarriers][q rows][ring][warp states (m, l)][live masks][int8: scales]
 constexpr int kBarBytes = 128;  // kWarps * kStages mbarriers, 8 bytes each
 static_assert(kWarps * kStages * 8 <= kBarBytes, "mbarrier area too small");
 static_assert(kWarps * kStages8 * 8 <= kBarBytes, "mbarrier area too small");
-__host__ __device__ constexpr int bf16_smem_bytes(int D, bool quant) {
+static_assert(kWarps * kSliceStages * 8 <= kBarBytes, "mbarrier area too small");
+__host__ __device__ constexpr int bf16_smem_bytes(int D, bool quant,
+                                                  bool slice) {
   return kBarBytes +
-         (kRows + ring_stages(quant) * kWarps * 2 * kTok) *
+         (kRows + ring_stages(quant, slice) * kWarps * 2 * kTok) *
              (padded_d(D) + kPad) * 2 +
-         kWarps * kRows * 8 + kWarps * ring_stages(quant) * 4 +
-         (quant ? kWarps * kStages8 * 2 * kTok * 4 : 0);
+         kWarps * kRows * 8 + kWarps * ring_stages(quant, slice) * 4 +
+         (quant ? kWarps * ring_stages(quant, slice) * 2 * kTok * 4 : 0);
 }
 
 // programmatic dependent launch: the merge kernel is launched while the
@@ -197,6 +232,56 @@ __device__ __forceinline__ void griddep_wait() {
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
+// Stamps of the tensor-core split kernel's phases, for
+// tools/attention_breakdown.py only: a build with PAGED_ATTN_STAMPS
+// defined records, per block, %globaltimer (ns) and %clock64 at each
+// stamp point into g_stamps (set by paged_attn_set_stamps), and the SM it
+// ran on; the library the port loads is built without it, and there
+// STAMP compiles to nothing.  Points: 0 block start; 1 the length, q and
+// the first page ids loaded and the first tiles issued; 2 warp 0's first
+// tile landed; 3 every warp's tile loop done; 4 warps merged and partials
+// written; 5 the warps' states in shared memory; 6 + w warp w's tile loop
+// done.
+constexpr int kStampPoints = 6 + kWarps;
+constexpr int kStampWords = 2 * kStampPoints + 2;  // + SM id, tiles of warp 0
+#ifdef PAGED_ATTN_STAMPS
+__device__ unsigned long long* g_stamps;
+__device__ __forceinline__ void stamp_at(int k, bool lead) {
+  if (!lead || g_stamps == nullptr) return;
+  unsigned long long t, smid;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t)::"memory");
+  const long long c = clock64();
+  unsigned long long* s =
+      g_stamps + (blockIdx.x + static_cast<size_t>(gridDim.x) *
+                                   (blockIdx.y + gridDim.y * blockIdx.z)) *
+                     kStampWords;
+  s[2 * k] = t;
+  s[2 * k + 1] = static_cast<unsigned long long>(c);
+  if (k == 0) {
+    unsigned id;
+    asm volatile("mov.u32 %0, %%smid;\n" : "=r"(id));
+    smid = id;
+    s[2 * kStampPoints] = smid;
+  }
+}
+__device__ __forceinline__ void stamp_word(int w, unsigned long long v) {
+  if (threadIdx.x == 0 && g_stamps != nullptr)
+    g_stamps[(blockIdx.x + static_cast<size_t>(gridDim.x) *
+                               (blockIdx.y + gridDim.y * blockIdx.z)) *
+                 kStampWords +
+             w] = v;
+}
+#define STAMP(k) stamp_at((k), threadIdx.x == 0)
+#define STAMP_WARP(w) stamp_at(6 + (w), (threadIdx.x & 31) == 0)
+#define STAMP_TILES(n) stamp_word(2 * kStampPoints + 1, (n))
+#define STAMP_SYNC() __syncthreads()
+#else
+#define STAMP(k) ((void)0)
+#define STAMP_WARP(w) ((void)0)
+#define STAMP_TILES(n) ((void)0)
+#define STAMP_SYNC() ((void)0)
+#endif
 
 // mbarrier of one ring stage: `count` arrivals (lane 0's, with the
 // stage's byte count, and in the int8 modes one per lane when its cp.async
@@ -416,9 +501,11 @@ __device__ __forceinline__ void widen_run(bf16* row, const unsigned char* src,
 // kQuant false: bf16 pools.  kQuant true: int8 pools with float32 scales
 // (kscale, vscale: one per pool row), each row staged into the upper half
 // of its bf16 ring row with its scale and widened there once the stage has
-// landed; from there the same tensor-core path.
-template <int kNt, bool kQuant>
-__global__ void __launch_bounds__(kWarps * 32, kQuant && kNt <= 16 ? 3 : 1)
+// landed; from there the same tensor-core path.  kSlice: the slice mode's
+// instantiation over pools holding a slice of each page (its ring depth,
+// blocks per SM and int8 runs over several pages; the same arithmetic).
+template <int kNt, bool kQuant, bool kSlice>
+__global__ void __launch_bounds__(kWarps * 32, min_blocks(kNt, kQuant, kSlice))
 split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
                   const void* __restrict__ vpool_,
                   const float* __restrict__ kscale,
@@ -429,7 +516,7 @@ split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
                   int H, int KVH, int D, int NP, int PS, int MAXP, int PSg,
                   int tok_off, int pages_per_split, int splits, float scale) {
   using Pool = typename std::conditional<kQuant, int8_t, bf16>::type;
-  constexpr int kS = ring_stages(kQuant);  // ring stages
+  constexpr int kS = ring_stages(kQuant, kSlice);  // ring stages
   const Pool* kpool = static_cast<const Pool*>(kpool_);
   const Pool* vpool = static_cast<const Pool*>(vpool_);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -457,6 +544,7 @@ split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
   const size_t row0 = static_cast<size_t>(b) * H + h * G + g0;
 
   griddep_launch_dependents();  // the merge may launch and wait for us
+  STAMP(0);
 
   // Independent loads first, so their latencies overlap: the length, this
   // thread's chunks of q, and the page ids of the warp's first tiles
@@ -494,6 +582,7 @@ split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
     if (static_cast<int>(threadIdx.x) < rows)
       ws_ml[(row0 + threadIdx.x) * splits + split] =
           make_float2(-INFINITY, 0.f);
+    STAMP(4);
     return;
   }
 
@@ -514,13 +603,20 @@ split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
   // row, each with one bulk copy (int8: into the row's upper half, with its
   // scale; a row of D = 8 (mod 16) bytes by 8-byte cp.async); a masked row
   // (past the length, or of an unmapped page) is zeroed instead and never
-  // read, nor is its scale.  Int8, a tile of 16 live tokens of one page
-  // (page size a multiple of 16, D a multiple of 16 up to 128): its K rows,
-  // V rows and their scales are four runs in the pools, each one bulk copy
-  // by lane 0, the rows to the end of their area of the stage, unpadded,
-  // widened from there (bit 31 of the stage's live mask)
+  // read, nor is its scale.  Int8, a tile of 16 live tokens (D a multiple
+  // of 16 up to 128) that lies in one page (PS a multiple of 16) or spans
+  // n = 16 / PS whole pages (PS 4 or 8: a slice's pools; a tile starts on
+  // a page, the split's first token being one): each page's K rows, V rows
+  // and their scales are four runs in the pools, PS * D and PS * 4 bytes
+  // (16-byte multiples, 16-byte aligned), each one bulk copy by one of
+  // lanes 0..4n-1, the rows to the end of their area of the stage,
+  // unpadded and in token order, widened from there (bit 31 of the stage's
+  // live mask); PS 2 keeps a copy per row (8-byte scale runs)
   const bool bulk = !kQuant || D % 16 == 0;
-  const bool runs = kQuant && kNt <= 16 && bulk && PS % kTok == 0;
+  const bool runs =
+      kQuant && kNt <= 16 && bulk &&
+      (PS % kTok == 0 || (kSlice && PS % 4 == 0 && kTok % PS == 0));
+  const int run_rows = PS % kTok == 0 ? kTok : PS;  // rows of one run
   const int run_off = kTok * ld * 2 - kTok * D;  // bytes into a K or V area
   auto issue = [&](int i, int pt) {
     const int st = i % kS;
@@ -539,8 +635,8 @@ split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
     }
     __syncwarp();
     bf16* dst = my + st * sstride + (lane >> 4) * kTok * ld + (lane & 15) * ld;
-    if (whole) {
-      if (lane == 0) {
+    if (whole && !kSlice) {  // one page: lane 0's four copies (the
+      if (lane == 0) {       // lanes' form below cost whole pages 9 %)
         unsigned char* k_run =
             reinterpret_cast<unsigned char*>(my + st * sstride) + run_off;
         float* sc = scl + (warp * kS + st) * 2 * kTok;
@@ -551,6 +647,23 @@ split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
                   vpool + static_cast<size_t>(prow) * D, kTok * D, bar);
         bulk_copy(smem_u32(sc), kscale + prow, kTok * 4, bar);
         bulk_copy(smem_u32(sc + kTok), vscale + prow, kTok * 4, bar);
+      }
+    } else if (whole) {  // lane k * n + p: run k (K, V, their scales), page p
+      const int n = kTok / run_rows, p = lane % n, kind = lane / n;
+      const int first = __shfl_sync(kFull, prow, p * run_rows);
+      if (kind < 4) {
+        const int r0 = p * run_rows;
+        unsigned char* k_run =
+            reinterpret_cast<unsigned char*>(my + st * sstride) + run_off;
+        float* sc = scl + (warp * kS + st) * 2 * kTok + (kind & 1) * kTok;
+        const Pool* pool = kind & 1 ? vpool : kpool;
+        const float* scales = kind & 1 ? vscale : kscale;
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        if (kind < 2)
+          bulk_copy(smem_u32(k_run + (kind & 1) * kTok * ld * 2 + r0 * D),
+                    pool + static_cast<size_t>(first) * D, run_rows * D, bar);
+        else
+          bulk_copy(smem_u32(sc + r0), scales + first, run_rows * 4, bar);
       }
     } else if (prow >= 0) {
       stage_row(reinterpret_cast<unsigned char*>(dst) + (kQuant ? D : 0),
@@ -583,6 +696,8 @@ split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
          i += blockDim.x)
       *reinterpret_cast<uint4*>(ring + i * ld + D) = make_uint4(0, 0, 0, 0);
   __syncthreads();
+  STAMP(1);
+  STAMP_TILES(mine);
 
   // fragment coordinates (mma.m16n8k16): row g / g + 8, column pair 2t
   const int g = lane >> 2, t = lane & 3;
@@ -605,6 +720,7 @@ split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
     if (i + kS - 1 < mine)
       issue(i + kS - 1, page_of(i + kS - 1));
     mbar_wait(my_bars + (i % kS) * 8, (i / kS) & 1);  // tile i
+    if (i == 0) STAMP(2);
     const unsigned live = live_s[warp * kS + i % kS];
     const bf16* ks = my + (i % kS) * sstride;
     const bf16* vs = ks + kTok * ld;
@@ -694,47 +810,74 @@ split_kernel_bf16(const bf16* __restrict__ q, const void* __restrict__ kpool_,
       }
     }
   }
-  // merge the warps' states through shared memory (the ring is free now)
+  STAMP_WARP(warp);
+  // merge the warps' states through shared memory (the ring is free now):
+  // each warp's (m, l) and its accumulator's rows below `rows` (stride
+  // Dp + 8 floats, so a half-warp's float2 stores fall on distinct banks);
+  // then thread r < rows takes row r's max M over the warps, each warp's
+  // weight exp(m_w - M) (a warp with no live token skipped) and the sum L,
+  // and the block sums the warps' rows with those weights in warp order:
+  // the same operations, in the same order, as one pass per element
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(kFull, l[r], 1);
     l[r] += __shfl_xor_sync(kFull, l[r], 2);
   }
   __syncthreads();
+  STAMP(3);
+  const int rs = Dp + 8;  // red_acc row stride, floats
   if (t == 0) {
     red_ml[warp * kRows + g] = make_float2(m[0], l[0]);
     red_ml[warp * kRows + g + 8] = make_float2(m[1], l[1]);
   }
-  float* ra = red_acc + warp * kRows * Dp;
+  float* ra = red_acc + warp * kRows * rs;
 #pragma unroll
   for (int n = 0; n < kNt; ++n) {
     if (n < Dp / 8) {
-      *reinterpret_cast<float2*>(ra + g * Dp + 8 * n + 2 * t) =
-          make_float2(acc[n][0], acc[n][1]);
-      *reinterpret_cast<float2*>(ra + (g + 8) * Dp + 8 * n + 2 * t) =
-          make_float2(acc[n][2], acc[n][3]);
+      if (g < rows)
+        *reinterpret_cast<float2*>(ra + g * rs + 8 * n + 2 * t) =
+            make_float2(acc[n][0], acc[n][1]);
+      if (g + 8 < rows)
+        *reinterpret_cast<float2*>(ra + (g + 8) * rs + 8 * n + 2 * t) =
+            make_float2(acc[n][2], acc[n][3]);
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    float M = -INFINITY;
+  STAMP(5);
+  if (static_cast<int>(threadIdx.x) < rows) {  // row r's weights and sum
+    const int r = threadIdx.x;
+    float M = -INFINITY, L = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) M = fmaxf(M, red_ml[w * kRows + r].x);
-    float a = 0.f, L = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float2 ml = red_ml[w * kRows + r];
+      float e = -1.f;  // skipped
       if (ml.x != -INFINITY) {
-        const float e = expf(ml.x - M);
-        a = fmaf(e, red_acc[(w * kRows + r) * Dp + d], a);
+        e = expf(ml.x - M);
         L = fmaf(e, ml.y, L);
       }
+      red_ml[w * kRows + r].x = e;
     }
-    const size_t o = (row0 + r) * splits + split;
-    ws_acc[o * D + d] = a;
-    if (d == 0) ws_ml[o] = make_float2(M, L);
+    ws_ml[(row0 + r) * splits + split] = make_float2(M, L);
   }
+  __syncthreads();
+#pragma unroll 4
+  for (int r = 0; r < rows; ++r) {
+    float e[kWarps];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) e[w] = red_ml[w * kRows + r].x;
+    float* out = ws_acc + ((row0 + r) * splits + split) * D;
+    for (int d = threadIdx.x; d < D; d += kWarps * 32) {
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        if (e[w] >= 0.f) a = fmaf(e[w], red_acc[(w * kRows + r) * rs + d], a);
+      out[d] = a;
+    }
+  }
+  STAMP_SYNC();
+  STAMP(4);
 }
 
 // ---------------------------------------------------------------------------
@@ -1140,51 +1283,54 @@ cudaError_t launch_merge(const float* ws_acc, const float2* ws_ml, void* out,
                             static_cast<T*>(out), D, splits);
 }
 
-// the bf16 split kernel (kQuant: over int8 pools) for padded D <= 8 * kNt,
-// allowed the shared memory of head dim D on the current device
-template <int kNt, bool kQuant>
+// the bf16 split kernel (kQuant: over int8 pools; kSlice: the slice
+// mode's instantiation) for padded D <= 8 * kNt, allowed the shared memory
+// of head dim D on the current device
+template <int kNt, bool kQuant, bool kSlice>
 cudaError_t ready_bf16(int D) {
   static int allowed[64];
-  return allow_smem(split_kernel_bf16<kNt, kQuant>,
-                    bf16_smem_bytes(D, kQuant), allowed);
+  return allow_smem(split_kernel_bf16<kNt, kQuant, kSlice>,
+                    bf16_smem_bytes(D, kQuant, kSlice), allowed);
 }
 
-template <int kNt, bool kQuant>
+template <int kNt, bool kQuant, bool kSlice>
 cudaError_t resident_bf16(int D, int* blocks) {
-  const cudaError_t err = ready_bf16<kNt, kQuant>(D);
+  const cudaError_t err = ready_bf16<kNt, kQuant, kSlice>(D);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, split_kernel_bf16<kNt, kQuant>, kWarps * 32,
-      bf16_smem_bytes(D, kQuant));
+      blocks, split_kernel_bf16<kNt, kQuant, kSlice>, kWarps * 32,
+      bf16_smem_bytes(D, kQuant, kSlice));
 }
 
-template <bool kQuant>
+template <bool kQuant, bool kSlice>
 cudaError_t resident_bf16_d(int D, int* blocks) {
   const int Dp = padded_d(D);
-  return Dp <= 64    ? resident_bf16<8, kQuant>(D, blocks)
-         : Dp <= 128 ? resident_bf16<16, kQuant>(D, blocks)
-                     : resident_bf16<32, kQuant>(D, blocks);
+  return Dp <= 64    ? resident_bf16<8, kQuant, kSlice>(D, blocks)
+         : Dp <= 128 ? resident_bf16<16, kQuant, kSlice>(D, blocks)
+                     : resident_bf16<32, kQuant, kSlice>(D, blocks);
 }
 
-template <int kNt, bool kQuant>
+template <int kNt, bool kQuant, bool kSlice>
 cudaError_t launch_bf16(const void* q, const void* kpool, const void* vpool,
                         const float* kscale, const float* vscale,
                         const int32_t* pt, const int32_t* lens, float* ws_acc,
                         float2* ws_ml, int B, int H, int KVH, int D, int NP,
                         int PS, int MAXP, int PSg, int off, int pps,
                         int splits, float scale, cudaStream_t stream) {
-  const int bytes = bf16_smem_bytes(D, kQuant);
-  const cudaError_t err = ready_bf16<kNt, kQuant>(D);
+  const int bytes = bf16_smem_bytes(D, kQuant, kSlice);
+  const cudaError_t err = ready_bf16<kNt, kQuant, kSlice>(D);
   if (err != cudaSuccess) return err;
   const int G = H / KVH;
   const dim3 grid(B * KVH, splits, (G + kRows - 1) / kRows);
-  split_kernel_bf16<kNt, kQuant><<<grid, kWarps * 32, bytes, stream>>>(
-      static_cast<const bf16*>(q), kpool, vpool, kscale, vscale, pt, lens,
-      ws_acc, ws_ml, H, KVH, D, NP, PS, MAXP, PSg, off, pps, splits, scale);
+  split_kernel_bf16<kNt, kQuant, kSlice>
+      <<<grid, kWarps * 32, bytes, stream>>>(
+          static_cast<const bf16*>(q), kpool, vpool, kscale, vscale, pt, lens,
+          ws_acc, ws_ml, H, KVH, D, NP, PS, MAXP, PSg, off, pps, splits,
+          scale);
   return cudaGetLastError();
 }
 
-template <bool kQuant>
+template <bool kQuant, bool kSlice>
 cudaError_t launch_bf16_d(const void* q, const void* kpool, const void* vpool,
                           const float* kscale, const float* vscale,
                           const int32_t* pt, const int32_t* lens,
@@ -1198,9 +1344,9 @@ cudaError_t launch_bf16_d(const void* q, const void* kpool, const void* vpool,
                          ws_ml, B, H, KVH, D, NP, PS, MAXP, PSg, off, pps,
                          splits, scale, stream);
   };
-  return Dp <= 64    ? go(launch_bf16<8, kQuant>)
-         : Dp <= 128 ? go(launch_bf16<16, kQuant>)
-                     : go(launch_bf16<32, kQuant>);
+  return Dp <= 64    ? go(launch_bf16<8, kQuant, kSlice>)
+         : Dp <= 128 ? go(launch_bf16<16, kQuant, kSlice>)
+                     : go(launch_bf16<32, kQuant, kSlice>);
 }
 
 // the float32-q split kernel of kG heads per block, allowed the shared
@@ -1294,8 +1440,11 @@ cudaError_t launch_splits(int dtype, const void* q, const void* kpool,
           q, kpool, vpool, kss, vss, pt, lens, ws_acc, ws_ml, B, H, KVH, D,
           NP, PS, MAXP, PSg, off, pps, splits, scale, s);
     case 1:
-    case 3:
-      return (dtype == 3 ? launch_bf16_d<true> : launch_bf16_d<false>)(
+    case 3:  // a slice of each page (PSg > PS): the slice instantiation
+      return (dtype == 3 ? PSg > PS ? launch_bf16_d<true, true>
+                                    : launch_bf16_d<true, false>
+              : PSg > PS ? launch_bf16_d<false, true>
+                         : launch_bf16_d<false, false>)(
           q, kpool, vpool, kss, vss, pt, lens, ws_acc, ws_ml, B, H, KVH, D,
           NP, PS, MAXP, PSg, off, pps, splits, scale, s);
     default:
@@ -1328,12 +1477,26 @@ extern "C" int paged_attn_resident_blocks(int dtype, int D, int G,
   cudaError_t err;
   switch (dtype) {
     case 0: err = resident_cc_g<false>(G, D, blocks); break;
-    case 1: err = resident_bf16_d<false>(D, blocks); break;
+    case 1: err = resident_bf16_d<false, false>(D, blocks); break;
     case 2: err = resident_cc_g<true>(G, D, blocks); break;
-    case 3: err = resident_bf16_d<true>(D, blocks); break;
+    case 3: err = resident_bf16_d<true, false>(D, blocks); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// The same for the page-token slice mode's launches over a slice of each
+// page (paged_attn_slice_launch with PSg > PS): the tensor-core routes
+// (dtypes 1 and 3) run an instantiation of their own.
+extern "C" int paged_attn_slice_resident_blocks(int dtype, int D, int G,
+                                                int* blocks) {
+  if (dtype == 1 || dtype == 3) {
+    if (D <= 0 || D > kMaxD || D % 8 || G <= 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(dtype == 3 ? resident_bf16_d<true, true>(D, blocks)
+                                       : resident_bf16_d<false, true>(D, blocks));
+  }
+  return paged_attn_resident_blocks(dtype, D, G, blocks);
 }
 
 // dtype: 0 float32, 1 bfloat16 (q, both pools and out); 2 float32 q and
@@ -1403,6 +1566,30 @@ extern "C" int paged_attn_slice_launch(int dtype, const void* q,
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef PAGED_ATTN_STAMPS
+namespace {
+__global__ void stamp_clock_kernel(unsigned long long* out) {
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(*out)::"memory");
+}
+}  // namespace
+// %globaltimer read by a one-thread kernel on `stream` into *out (device
+// memory): bracketing a launch, it shows the gaps before its first block
+// and after its last.  Returns the cudaError_t of the launch.
+extern "C" int paged_attn_stamp_clock(void* out, void* stream) {
+  stamp_clock_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+// The stamp buffer of the tensor-core split kernel (see STAMP): kStampWords
+// unsigned 64-bit words per block, blocks in (x, y, z) order; null stops
+// the stamps.  Returns the cudaError_t.
+extern "C" int paged_attn_set_stamps(void* buf) {
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_stamps, &buf, sizeof(buf)));
+}
+extern "C" int paged_attn_stamp_words() { return kStampWords; }
+#endif
 
 // The merge alone over `parts` partials per (sequence, head) row: acc
 // (rows, parts, D) float32 and (m, l) (rows, parts) float2 pairs, in the

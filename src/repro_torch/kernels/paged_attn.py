@@ -25,7 +25,10 @@ decode over a mesh whose model axis splits each page's tokens) reads
 pools holding a slice of each page and returns the splits' partials;
 ``merge_partials`` merges the partials of every slice (the merge kernel
 alone).  With one slice the merged partials equal the whole-page output
-bit for bit.
+bit for bit.  A real slice runs the tensor-core kernel's slice
+instantiation (three blocks per SM, int8 slice pages staged as runs),
+at the split count that fills one wave of its blocks; its int8 route
+equals its bf16 route on the dequantized pools bit for bit.
 
 On a CPU tensor the wrappers run the plain versions
 (``paged_attn_ref.paged_attention_ref``, ``merge_partials_ref``); on a

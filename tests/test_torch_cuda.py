@@ -688,16 +688,12 @@ def test_slice_mode_matches_plain(dev, route, G, D, PS, m):
         assert torch.equal(got, paged_attn.paged_attention(*args, **kw))
 
 
-@pytest.mark.parametrize("route", [0, 1, 2, 3])
-@pytest.mark.parametrize("m", [2, 4])
-def test_slice_mode_ignores_poisoned_rows(dev, route, m):
-    """Poison in every slice row that holds no live token (past a length,
-    or of an unmapped page) leaves the merged output bit-identical."""
-    args, kw = slice_case(dev, route, 8, 128, 16, m, seed=5)
+def poisoned(args, kw):
+    """The case with every pool row that holds no live token (past a
+    length, or of an unmapped page) poisoned, and NaN in its int8 scales."""
     q, kp, vp, pt, lens = args
-    base = run_slices(args, kw, m)
     PS, NP = kp.shape[2], kp.shape[0]
-    live = torch.zeros(NP, PS, dtype=torch.bool, device=dev)
+    live = torch.zeros(NP, PS, dtype=torch.bool, device=kp.device)
     for b in range(pt.shape[0]):
         for p in range(pt.shape[1]):
             if int(pt[b, p]) >= 0:
@@ -709,7 +705,107 @@ def test_slice_mode_ignores_poisoned_rows(dev, route, m):
     kp2[dead], vp2[dead] = bad, -bad
     kw2 = {k: torch.where(dead[..., :1], float("nan"), v)
            for k, v in kw.items()}
-    assert torch.equal(run_slices((q, kp2, vp2, pt, lens), kw2, m), base)
+    return (q, kp2, vp2, pt, lens), kw2
+
+
+@pytest.mark.parametrize("route", [0, 1, 2, 3])
+@pytest.mark.parametrize("m", [2, 4])
+def test_slice_mode_ignores_poisoned_rows(dev, route, m):
+    """Poison in every slice row that holds no live token (past a length,
+    or of an unmapped page) leaves the merged output bit-identical."""
+    args, kw = slice_case(dev, route, 8, 128, 16, m, seed=5)
+    base = run_slices(args, kw, m)
+    assert torch.equal(run_slices(*poisoned(args, kw), m), base)
+
+
+def int8_slice_case(dev, G, D, PS, seed):
+    """``route_case``'s sequences (lengths 0, 1, two pages, past a dead
+    page) in bf16 q over int8 pools, with the plain version's dequantized
+    bf16 pools: ((q, kq, vq, pt, lens), {kscale, vscale}, (kb, vb))."""
+    (q, _, _, pt, ln), (kq, ks, vq, vs) = route_case(seed, G, D, PS, dev)
+    deq = (KC.dequant(kq, ks, torch.bfloat16),
+           KC.dequant(vq, vs, torch.bfloat16))
+    return (q.bfloat16(), kq, vq, pt, ln), {"kscale": ks, "vscale": vs}, deq
+
+
+def int8_slices_equal_bf16(args, kw, deq, m, splits):
+    """Every slice's partials of the int8 route against the bf16 route's on
+    the dequantized pools at ``splits`` (0: the int8 route's host count,
+    the bf16 route launched at the same count), bit for bit; returns the
+    int8 route's merged output."""
+    q, kq, vq, pt, lens = args
+    PS = kq.shape[2]
+    scale = float(1.0 / q.shape[2] ** 0.5)
+    parts = []
+    for r in range(m):
+        cut = {k: slice_of(v, m, r) for k, v in kw.items()}
+        got = _cuda.launch_paged_attn_slice(
+            q, slice_of(kq, m, r), slice_of(vq, m, r), pt, lens, scale, PS,
+            r * (PS // m), splits=splits, **cut)
+        sp = got[0].shape[2]
+        assert sp == splits or not splits
+        want = _cuda.launch_paged_attn_slice(
+            q, slice_of(deq[0], m, r), slice_of(deq[1], m, r), pt, lens,
+            scale, PS, r * (PS // m), splits=sp)
+        torch.cuda.synchronize()
+        live = got[1][..., 0] != float("-inf")    # an empty split's acc is
+        assert torch.equal(got[1], want[1])       # never written or read
+        assert torch.equal(got[0][live], want[0][live])
+        parts.append(got)
+    return paged_attn.merge_partials(torch.cat([a for a, _ in parts], 2),
+                                     torch.cat([b for _, b in parts], 2),
+                                     q.dtype)
+
+
+@pytest.mark.parametrize("G", [3, 8])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("PS", [16, 32])
+@pytest.mark.parametrize("m", [2, 4])
+def test_int8_slices_equal_bf16_slices_on_dequantized_pools(dev, G, D, PS,
+                                                            m):
+    """The int8 slice route stages a tile of whole slice pages as runs (PS /
+    m rows of 4 or 8, or 16 and more): at split count 3 and at the host's,
+    every slice's partials equal the bf16 slice route's on the dequantized
+    pools bit for bit, and the merge is within 6e-2 of the plain
+    version."""
+    args, kw, deq = int8_slice_case(dev, G, D, PS, seed=G * D + PS + m)
+    for splits in (3, 0):
+        out = int8_slices_equal_bf16(args, kw, deq, m, splits)
+    assert not out[0].any()                     # a length of 0: zeros
+    want = paged_attention_ref(*args, **kw)     # (its softmax: NaN)
+    assert float((out[1:].float() - want[1:].float()).abs().max()) < 6e-2
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("PS", [16, 32])
+def test_int8_slices_of_two_or_four_rows(dev, D, PS):
+    """Eight slices of each page: 2 rows per page (16-token pages) keep a
+    copy per row (scale runs of 8 bytes), 4 rows (32-token pages) go as
+    runs; both equal the bf16 slice route on the dequantized pools bit for
+    bit, and the merge is within 6e-2 of the plain version and of the
+    plain slice mode's merge."""
+    args, kw, deq = int8_slice_case(dev, 8, D, PS, seed=D + PS)
+    for splits in (3, 0):
+        out = int8_slices_equal_bf16(args, kw, deq, 8, splits)
+    assert not out[0].any()                     # a length of 0: zeros
+    want = paged_attention_ref(*args, **kw)     # (its softmax: NaN)
+    assert float((out[1:].float() - want[1:].float()).abs().max()) < 6e-2
+    plain = run_slices(args, kw, 8, fn=plain_slices,
+                       merge=lambda a, b, dt: paged_attn.merge_partials_ref(
+                           a, b, dt))
+    assert float((out.float() - plain.float()).abs().max()) < 6e-2
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("PS", [16, 32])
+@pytest.mark.parametrize("m", [1, 2, 4])
+def test_int8_slice_runs_ignore_poisoned_rows(dev, D, PS, m):
+    """Tiles staged as runs next to tiles staged row by row (a length
+    inside a page, a dead page inside a length): poisoned dead rows and
+    NaN scales leave every slice's merged output bit-identical."""
+    args, kw, _ = int8_slice_case(dev, 8, D, PS, seed=7 * D + PS + m)
+    base = run_slices(args, kw, m)
+    assert torch.equal(run_slices(*poisoned(args, kw), m), base)
 
 
 def test_slice_mode_makes_no_host_sync(dev):

@@ -13,6 +13,9 @@ split order), so the split-and-merge scheme is held against the JAX
 package here, where the kernel itself cannot run.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +27,7 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attn
 
+ROOT = Path(__file__).resolve().parent.parent
 DTYPES = [(jnp.float32, torch.float32, 2e-5), (jnp.bfloat16, torch.bfloat16,
                                                6e-2)]
 
@@ -303,3 +307,115 @@ def test_slice_mode_on_meta_tensors_gives_shapes_only():
     out = tops.merge_partials(acc, ml, torch.bfloat16)
     assert out.shape == (4, 8, 32) and out.dtype == torch.bfloat16
     assert paged_attn.paged_attention.launches == n0
+
+
+def test_slice_split_count_at_serving_sizes():
+    """A slice launch's split count fills one wave of the slice
+    instantiation's three blocks per SM: at Yi-6B's B 32 decode shape (128
+    sequence-heads, 132 pages, 132 SMs) 3 splits, where the whole-page
+    launch's two blocks per SM give 2; at the launcher's batch of 4, 22
+    against 15."""
+    assert _cuda.paged_attn_splits(128, 132, 132, 3) == 3
+    assert _cuda.paged_attn_splits(128, 132, 132, 2) == 2
+    assert _cuda.paged_attn_splits(16, 132, 132, 3) == 22
+    assert _cuda.paged_attn_splits(16, 132, 132, 2) == 15
+
+
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+@pytest.mark.parametrize("PS", [8, 16])
+def test_stretched_lengths_make_whole_pages_one_slice(jdt, tdt, tol, PS):
+    """``tools/attention_modes.py`` times whole pages through the slice
+    mode as slice 0 of pages of 2 * PS tokens, each length L stretched to
+    (L // PS) * 2 * PS + L % PS: the same rows are live, so the plain
+    slice mode's merged partials equal the whole-page plain version's one
+    slice bit for bit, and the JAX package's plain version within the
+    dtype's tolerance."""
+    MAXP = 5
+    lens = [1, PS, PS + 3, 2 * PS - 1, MAXP * PS]
+    rng = np.random.RandomState(PS)
+    (jq, jk, jv, jpt, jl), targs = both(
+        make_case(rng, len(lens), 8, 2, 32, PS, MAXP, lens=lens), jdt, tdt)
+    q, kp, vp, pt, ln = targs
+    acc, ml = tops.paged_attention(q, kp, vp, pt, ln // PS * 2 * PS + ln % PS,
+                                   page_stride=2 * PS, token_offset=0)
+    got = tops.merge_partials(acc, ml, tdt)
+    assert torch.equal(got, sliced(*targs, 1))
+    assert err(jax_ref(jq, jk, jv, jpt, jl), got) < tol
+
+
+def test_a_variant_builds_apart_from_the_port():
+    """A source built with extra definitions (the stamped attention
+    kernel) goes into a directory of its own, keyed by its flags; the
+    library the port loads is built with none."""
+    port = _cuda._target("paged_attn.cu")
+    stamped = _cuda._target(*_cuda.ATTN_STAMPS)
+    assert port.parent == _cuda.BUILD_DIR
+    assert stamped.parent == _cuda.BUILD_DIR / "variant_PAGED_ATTN_STAMPS"
+    assert stamped.name.startswith("paged_attn-") and stamped.name != port.name
+
+
+def test_breakdown_summary_of_synthetic_stamps():
+    """``tools/attention_breakdown.py``'s summary of per-block stamps: two
+    blocks 2 us apart, each 1 us of setup, 0.5 to its first tile, 8 in its
+    loop and 2 in the merge (0.5 into shared memory), its warps' loops
+    ending over 0.5 us, at 2 cycles per ns."""
+    spec = importlib.util.spec_from_file_location(
+        "attention_breakdown", ROOT / "tools" / "attention_breakdown.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    points = 10
+    at = [0, 1000, 1500, 9500, 11500, 10000, 9000, 9200, 9400, 9500]
+    st = np.zeros((2, 2 * points + 2), np.int64)
+    for blk, start in enumerate((10_000, 12_000)):
+        st[blk, 0:2 * points:2] = [start + t for t in at]
+        st[blk, 1:2 * points:2] = [2 * (start + t) + 7 for t in at]
+        st[blk, 2 * points], st[blk, 2 * points + 1] = blk, 5
+    got = ab._summarise(st, points)
+    assert got["phases_us"] == {"setup": 1.0, "first_tile": 0.5, "loop": 8.0,
+                                "merge": 2.0, "merge_smem": 0.5,
+                                "merge_out": 1.5}
+    assert got["span_us"] == 13.5 and got["cycles_per_ns"] == 2.0
+    assert got["starts_us"] == [0.0, 2.0, 2.0]
+    assert got["ends_us"] == [11.5, 13.5, 13.5]
+    assert got["warp_skew_us"] == 0.5 and got["tiles"] == [5, 5]
+    assert got["blocks"] == 2 and got["sms"] == 2 and got["empty_blocks"] == 0
+
+
+def split_slice_partials(q, kp, vp, pt, lens, m, r, splits):
+    """Slice ``r`` of ``m``'s partials per split of the page range, as the
+    kernel's slice mode writes them: the plain slice mode over each
+    split's pages (the others unmapped), in split order."""
+    PS = kp.shape[2]
+    parts = []
+    for b, e in _cuda.split_pages(pt.shape[1], splits):
+        cut = torch.full_like(pt, -1)
+        cut[:, b:e] = pt[:, b:e]
+        parts.append(tops.paged_attention(q, *slice_pools(kp, vp, m, r), cut,
+                                          lens, page_stride=PS,
+                                          token_offset=r * (PS // m)))
+    return (torch.cat([a for a, _ in parts], 2),
+            torch.cat([b for _, b in parts], 2))
+
+
+@pytest.mark.parametrize("jdt,tdt,tol", DTYPES)
+@pytest.mark.parametrize("m", [2, 4])
+def test_slice_split_counts_merge_to_the_plain_version(jdt, tdt, tol, m):
+    """Each slice cut into the split count of one wave of slice blocks (16
+    SMs, three blocks each, 8 sequence-heads of 20 pages of 16: 5 splits),
+    every slice's splits' partials merged in slice then split order
+    (``transformer._merge_slices``' order): within the dtype's tolerance
+    (float32 2e-5, bf16 6e-2) of the unsliced plain version and of the
+    JAX package's."""
+    PS, MAXP = 16, 20
+    lens = [1, PS // m, 3 * PS + 1, MAXP * PS]
+    rng = np.random.RandomState(40 + m)
+    (jq, jk, jv, jpt, jl), targs = both(
+        make_case(rng, len(lens), 8, 2, 32, PS, MAXP, lens=lens), jdt, tdt)
+    splits = _cuda.paged_attn_splits(len(lens) * 2, MAXP, 16, 3)
+    assert splits == 5
+    parts = [split_slice_partials(*targs, m, r, splits) for r in range(m)]
+    got = tops.merge_partials(torch.cat([a for a, _ in parts], 2),
+                              torch.cat([b for _, b in parts], 2), tdt)
+    assert got.shape == targs[0].shape and got.dtype == tdt
+    assert err(tops.paged_attention(*targs).float().numpy(), got) < tol
+    assert err(jax_ref(jq, jk, jv, jpt, jl), got) < tol

@@ -20,6 +20,22 @@ Each route is held against its plain version at the host's count first
 (float32 q 2e-5, bf16 q within ``chip_smoke._attn_limit``).  Prints one
 JSON line per route: {"mode", "splits", "max_abs_err", "bound_us",
 "us": {splits: µs}} (and for int8 "bit_equal_bf16": {splits: bool}).
+
+Then the page-token slice mode of the two tensor-core routes (``bf16``,
+``int8``) at m = 2 and 4 slices of each page (``chip_smoke._slices``):
+slice 0's launch timed at the host's split count (0) and at each of
+``SLICE_SPLITS``, one JSON line per route and m: {"mode", "slices",
+"splits", "us": {splits: µs}}.
+
+Last, whole pages of bf16 through the slice mode's instantiation (its
+2-tile ring and three blocks per SM): the slice launch over the whole
+pools as slice 0 of pages of 2 * PS tokens, each length stretched so that
+the same rows are live, and the merge.  At 2 splits (the whole-page
+launch's host count) and 3 (a wave of three blocks per SM) its output is
+held bit-equal to the whole-page launch's at the same count, and both are
+timed in the order whole, slice ring, slice ring, whole: one JSON line
+{"mode": "bf16_whole_pages_on_the_slice_ring", "splits", "bit_equal",
+"us": {"whole": {splits: µs}, "slice_ring": {splits: µs}}}.
 """
 
 import json
@@ -31,6 +47,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 SPLITS = (0, 1, 2, 3, 4, 8, 16)
+SLICE_SPLITS = (0, 1, 2, 3, 4, 6, 8)
 
 
 def main() -> int:
@@ -105,6 +122,47 @@ def main() -> int:
         del batches, args, kw
         modes[mode] = None
         torch.cuda.empty_cache()
+    slices = {"bf16": [(a, {}) for a in bf16], "int8": int8}
+    for mode, batches in slices.items():
+        for m in (2, 4):
+            sliced = [cs._slices(torch, a, kw, m)[0] for a, kw in batches]
+            host = _cuda.launch_paged_attn_slice(
+                *sliced[0][0], scale, PS, 0, **sliced[0][1])[0].shape[2]
+            us = {sp: 1e3 * cs._device_ms(
+                torch, lambda sl, sp=sp: _cuda.launch_paged_attn_slice(
+                    *sl[0], scale, PS, sl[2], splits=sp, **sl[1]),
+                sliced, 50, cs.KERNEL_SLEEP) for sp in SLICE_SPLITS}
+            print(json.dumps({"mode": mode, "slices": m, "splits": host,
+                              "us": us}), flush=True)
+            del sliced
+        torch.cuda.empty_cache()
+    stretched = [(q, kp, vp, pt, lens // PS * 2 * PS + lens % PS)
+                 for q, kp, vp, pt, lens in bf16]
+
+    def on_ring(a, sp):
+        acc, ml = _cuda.launch_paged_attn_slice(*a, scale, 2 * PS, 0,
+                                                splits=sp)
+        return _cuda.launch_paged_attn_merge(acc, ml, torch.bfloat16)
+    host = _cuda.launch_paged_attn_slice(*stretched[0], scale, 2 * PS,
+                                         0)[0].shape[2]
+    line = {"mode": "bf16_whole_pages_on_the_slice_ring", "splits": host,
+            "bit_equal": {}, "us": {"whole": {}, "slice_ring": {}}}
+    for sp in (2, 3):
+        line["bit_equal"][sp] = torch.equal(
+            on_ring(stretched[0], sp),
+            _cuda.launch_paged_attn(*bf16[0], scale, splits=sp))
+        fns = {"whole": (lambda a, sp=sp: _cuda.launch_paged_attn(
+                   *a, scale, splits=sp), bf16),
+               "slice_ring": (lambda a, sp=sp: on_ring(a, sp), stretched)}
+        t = {k: [] for k in fns}
+        for k in ("whole", "slice_ring", "slice_ring", "whole"):
+            t[k].append(1e3 * cs._device_ms(torch, fns[k][0], fns[k][1], 50,
+                                            cs.KERNEL_SLEEP))
+        for k, v in t.items():
+            line["us"][k][sp] = sum(v) / len(v)
+    cs._check(all(line["bit_equal"].values()), "whole pages through the "
+              "slice instantiation equal the whole-page launch")
+    print(json.dumps(line), flush=True)
     print(cs._smi())
     return 0
 
